@@ -1,0 +1,175 @@
+"""3D math on tensors (counterpart of ``reze_tpu/core/math3d.py``).
+
+Same conventions: left-handed, +Z forward, +Y up; quaternions ``[x, y, z,
+w]`` with Hamilton products; MMD ZXY Euler order; matrices ``(..., 4, 4)``
+acting on column vectors. Every function broadcasts over leading axes.
+Only the functions the step, camera and frame pipeline use are here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _const(values, like: Tensor) -> Tensor:
+    return torch.tensor(values, dtype=like.dtype, device=like.device)
+
+
+def ease_in_out(t: Tensor) -> Tensor:
+    """Quadratic ease-in-out."""
+    return torch.where(t < 0.5, 2.0 * t * t, 1.0 - torch.square(-2.0 * t + 2.0) / 2.0)
+
+
+def quat_mul(a: Tensor, b: Tensor) -> Tensor:
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q: Tensor) -> Tensor:
+    return q * _const([-1.0, -1.0, -1.0, 1.0], q)
+
+
+def quat_normalize(q: Tensor, eps: float = 0.0) -> Tensor:
+    """Normalize; zero length becomes identity."""
+    n = torch.linalg.norm(q, dim=-1, keepdim=True)
+    out = q / torch.where(n > eps, n, torch.ones_like(n))
+    ident = _const([0.0, 0.0, 0.0, 1.0], q).expand(q.shape)
+    return torch.where(n > eps, out, ident)
+
+
+def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
+    qv = q[..., :3]
+    qw = q[..., 3:4]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + qw * t + torch.linalg.cross(qv, t)
+
+
+def quat_slerp(a: Tensor, b: Tensor, t) -> Tensor:
+    """Shortest-path slerp with an nlerp fallback above cos > 0.9995."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)[..., None]
+    cos = torch.sum(a * b, dim=-1, keepdim=True)
+    b = torch.where(cos < 0.0, -b, b)
+    cos = torch.abs(cos)
+
+    lin = a + t * (b - a)
+    lin = lin / torch.linalg.norm(lin, dim=-1, keepdim=True)
+
+    cos_c = torch.clamp(cos, -1.0, 0.99951)
+    theta0 = torch.arccos(cos_c)
+    sin_theta0 = torch.sin(theta0)
+    theta = theta0 * t
+    s0 = torch.sin(theta0 - theta) / sin_theta0
+    s1 = torch.sin(theta) / sin_theta0
+    sph = s0 * a + s1 * b
+    return torch.where(cos > 0.9995, lin, sph)
+
+
+def quat_from_rotvec(rv: Tensor) -> Tensor:
+    """Rotation vector (axis * angle) -> quaternion (exp map)."""
+    angle = torch.linalg.norm(rv, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    sinc = torch.where(angle > 1e-8,
+                       torch.sin(half) / torch.clamp(angle, min=1e-12),
+                       torch.full_like(angle, 0.5))
+    return torch.cat([rv * sinc, torch.cos(half)], dim=-1)
+
+
+def quat_from_euler_zxy(rot: Tensor) -> Tensor:
+    """MMD Euler (rotX, rotY, rotZ), ZXY order -> quaternion."""
+    half = 0.5 * rot
+    sx, sy, sz = torch.sin(half).unbind(-1)
+    cx, cy, cz = torch.cos(half).unbind(-1)
+    w = cy * cx * cz + sy * sx * sz
+    x = cy * sx * cz + sy * cx * sz
+    y = sy * cx * cz - cy * sx * sz
+    z = cy * cx * sz - sy * sx * cz
+    return quat_normalize(torch.stack([x, y, z, w], dim=-1))
+
+
+def quat_to_euler_zxy(q: Tensor) -> Tensor:
+    """Euler extraction with the reference engine's formulas (an
+    approximate inverse of :func:`quat_from_euler_zxy`)."""
+    qx, qy, qz, qw = q.unbind(-1)
+    rot_x = torch.atan2(2.0 * (qw * qx + qy * qz), 1.0 - 2.0 * (qx * qx + qy * qy))
+    sinp = 2.0 * (qw * qy - qz * qx)
+    rot_y = torch.where(
+        torch.abs(sinp) >= 1.0,
+        torch.sign(sinp) * (math.pi / 2.0),
+        torch.asin(torch.clamp(sinp, -1.0, 1.0)),
+    )
+    rot_z = torch.atan2(2.0 * (qw * qz + qx * qy), 1.0 - 2.0 * (qy * qy + qz * qz))
+    return torch.stack([rot_x, rot_y, rot_z], dim=-1)
+
+
+def mat3_from_quat(q: Tensor) -> Tensor:
+    x, y, z, w = q.unbind(-1)
+    x2, y2, z2 = x + x, y + y, z + z
+    xx, xy, xz = x * x2, x * y2, x * z2
+    yy, yz, zz = y * y2, y * z2, z * z2
+    wx, wy, wz = w * x2, w * y2, w * z2
+    row0 = torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1)
+    row1 = torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1)
+    row2 = torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def mat4_from_rot_pos(rot3: Tensor, pos: Tensor) -> Tensor:
+    batch = torch.broadcast_shapes(rot3.shape[:-2], pos.shape[:-1])
+    rot3 = rot3.expand(batch + (3, 3))
+    pos = pos.expand(batch + (3,))
+    top = torch.cat([rot3, pos[..., :, None]], dim=-1)
+    bottom = _const([0.0, 0.0, 0.0, 1.0], rot3).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def mat4_inverse(m: Tensor) -> Tensor:
+    return torch.linalg.inv(m)
+
+
+def perspective_lh(fov: float, aspect: float, near: float, far: float,
+                   device=None) -> Tensor:
+    """Left-handed perspective, depth in [0 (near), 1 (far)]. The entries
+    are rounded to float32 in the same order as the JAX version."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    fov, aspect, near, far = f32(fov), f32(aspect), f32(near), f32(far)
+    f = 1.0 / torch.tan(fov / 2.0)
+    range_inv = 1.0 / (far - near)
+    z = torch.zeros_like(f)
+    one = torch.ones_like(f)
+    return torch.stack([
+        torch.stack([f / aspect, z, z, z]),
+        torch.stack([z, f, z, z]),
+        torch.stack([z, z, (far + near) * range_inv, -near * far * range_inv * 2.0]),
+        torch.stack([z, z, one, z]),
+    ])
+
+
+def look_at_lh(eye: Tensor, target: Tensor, up: Tensor) -> Tensor:
+    """Left-handed look-at: the camera looks along +Z."""
+    def norm(v):
+        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+    forward = norm(target - eye)
+    right = norm(torch.linalg.cross(up, forward))
+    up_vec = norm(torch.linalg.cross(forward, right))
+    rot = torch.stack([right, up_vec, forward], dim=-2)
+    trans = torch.stack([
+        -torch.sum(right * eye, dim=-1),
+        -torch.sum(up_vec * eye, dim=-1),
+        -torch.sum(forward * eye, dim=-1),
+    ], dim=-1)
+    return mat4_from_rot_pos(rot, trans)

@@ -1,0 +1,85 @@
+"""Composite epilogue: nearest albedo fetch, two-layer blend and the bloom
+seed in one pass (counterpart of ``reze_tpu/kernels/composite_tpu.py``
+together with the albedo gather ``pipeline_tpu._albedo_u32``).
+
+Per pixel and layer the texel index is ``tex + (fx > .5) dx + (fy > .5)
+dy`` from the shade outputs; a half-res layer takes the index of the
+even-row, even-column pixel of its 2x2 block. Layers blend back to front
+by ``a_eff`` with rim added; a layer without texture (index < 0) is white.
+The bloom seed is the vertical mean of each pair of rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from . import shade_gpu as SG
+
+Tensor = torch.Tensor
+
+_INV255 = 1.0 / 255.0
+
+
+def composite(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
+              with_bloom: bool) -> tuple[Tensor, Tensor | None]:
+    """o (2*O_CH, hp, wp) shade outputs, atlas (N, 4) uint8 rgba rows ->
+    (image (3, hp, wp), bloom seed (3, hp/2, wp) or None).
+
+    CUDA tensors launch ``csrc/composite.cu``; CPU tensors run
+    :func:`composite_twin`."""
+    if not o.is_cuda:
+        return composite_twin(o, atlas, half0=half0, half1=half1, with_bloom=with_bloom)
+    hp, wp = o.shape[-2:]
+    if (o.dtype != torch.float32 or not o.is_contiguous()
+            or tuple(o.shape) != (2 * SG.O_CH, hp, wp) or hp % 2):
+        raise ValueError(f"o: need contiguous float32 (18, even hp, wp), got "
+                         f"{o.dtype} {tuple(o.shape)}")
+    if (atlas.device != o.device or atlas.dtype != torch.uint8 or atlas.dim() != 2
+            or atlas.shape[1] != 4 or not atlas.is_contiguous()
+            or atlas.data_ptr() % 4):
+        raise ValueError("atlas: need a contiguous, 4-byte aligned (N, 4) uint8 tensor "
+                         "on the same device")
+    img = torch.empty((3, hp, wp), dtype=torch.float32, device=o.device)
+    half = torch.empty((3, hp // 2, wp), dtype=torch.float32, device=o.device)
+    err = cuda_lib.library().reze_composite(
+        o.data_ptr(), atlas.data_ptr(), atlas.shape[0], img.data_ptr(), half.data_ptr(),
+        hp, wp, int(half0), int(half1), int(with_bloom),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    cuda_lib.check(err, "reze_composite")
+    composite.launches += 1
+    return img, (half if with_bloom else None)
+
+
+composite.launches = 0
+
+
+def composite_twin(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
+                   with_bloom: bool) -> tuple[Tensor, Tensor | None]:
+    """Plain torch version of :func:`composite`."""
+    hp, wp = o.shape[-2:]
+    n = atlas.shape[0]
+    c = [torch.zeros((hp, wp), device=o.device) for _ in range(3)]
+    for layer, half_res in ((0, half0), (1, half1)):
+        base = layer * SG.O_CH
+        src = o[base:base + SG.O_CH]
+        if half_res:  # fetch at the even-row, even-column pixel of each 2x2
+            src = src[:, 0::2, 0::2].repeat_interleave(2, 1).repeat_interleave(2, 2)
+        dxdy = src[SG.O_DXDY]
+        dx = torch.fmod(dxdy, 2.0)
+        dy = (dxdy - dx) * 0.5
+        zero = torch.zeros_like(dx)
+        near = (src[SG.O_TEX] + torch.where(src[SG.O_FX] > 0.5, dx, zero)
+                + torch.where(src[SG.O_FY] > 0.5, dy, zero))
+        idx = torch.clamp(torch.clamp(near, min=0.0).to(torch.int64), max=n - 1)
+        texel = atlas[idx].to(torch.float32) * _INV255  # (hp, wp, 4)
+        valid = o[base + SG.O_TEX] >= 0.0
+        rim = o[base + SG.O_RIM]
+        a = o[base + SG.O_AEFF]
+        na = 1.0 - a
+        for ch in range(3):
+            t = torch.where(valid, texel[..., ch], 1.0)
+            c[ch] = (t * o[base + SG.O_LR + ch] + rim) * a + c[ch] * na
+    img = torch.stack(c)
+    half = (img[:, 0::2] + img[:, 1::2]) * 0.5 if with_bloom else None
+    return img, half

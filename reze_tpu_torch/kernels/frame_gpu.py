@@ -1,0 +1,441 @@
+"""The frame megakernel: all seven raster passes, the two-layer fragment
+stack and the shade in one launch (counterpart of ``reze_tpu/kernels/
+frame_tpu.py``), plus the pair pack that feeds it.
+
+The pack (plain torch: one sort, cumsums, gathers) lists every (tile,
+triangle) pair of every pass by bounding box, sorted by (pass, tile, draw
+order), and writes one row of plane coefficients per pair. Each 8x128 tile
+then walks its own segment of rows per pass.
+
+Semantics the kernel and its twin share with the reference:
+
+* pairs resolve in groups of ``GROUP`` consecutive pairs from the segment
+  start: the whole group tests depth against the depth buffer as it stood
+  before the group, the buffer then takes the group's per-sample minimum,
+  and the group's winner (latest-drawn pair at minimum centre z among the
+  pairs that passed any sample) replaces the pass's G-buffer where its z
+  is <= the stored one;
+* planes are evaluated in tile-local coordinates (constants moved to the
+  tile origin first), so z-ties round the same way across a tile;
+* after each pass the fragments go onto the stack: opaque clears it,
+  translucent displaces layer 1, ``a_eff < 0.001`` is dropped, the eye
+  pass writes the stencil and hair alpha halves where it is set;
+* after the last pass each layer is shaded (``shade_gpu``); a layer with no
+  fragment in the tile writes texel index -1 and zeros.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..render.raster import SAMPLE_OFFSETS, TriSetup
+from . import cuda_lib
+from . import shade_gpu as SG
+
+Tensor = torch.Tensor
+
+TILE_H = 8
+TILE_W = 128
+CHUNK = 128  # pairs staged per step (the pack pads the rows to a multiple)
+GROUP = 32  # pairs resolved together (see the module docstring)
+
+# pair-row columns; only 0:37 are used, the row is padded to 40 floats
+# 0:9   ea0 eb0 ec0 ea1 eb1 ec1 ea2 eb2 ec2   edge planes, pre-divided
+# 9:12  za zb zc                              depth plane
+# 12:14 ymin ymax                             pixel-space y range
+# 14    packed material code [alpha*1023 | ramp 4b | tex 4b | edge 4b | hair 1b]
+# 15:18 1/|grad e_i|                          analytic-coverage AA
+# 19:37 a0..a5 b0..b5 c0..c5                  attribute planes u v nx ny nz (x 1/w), 1/w
+C_E, C_Z, C_YMIN, C_YMAX, C_ALPHA, C_IGRAD, C_ATTR = 0, 9, 12, 13, 14, 15, 19
+ROW_USED = 37
+ROW_W = 40
+
+# per pass: (outline, depth_write, write_stencil, use_stencil)
+PASS_CFG = (
+    (False, True, False, False),  # opaque
+    (False, True, True, False),  # eyes (stencil := 1)
+    (True, True, False, False),  # opaque outlines
+    (False, True, False, True),  # hair (alpha halved over the stencil)
+    (True, False, False, False),  # hair outlines (no depth write)
+    (False, True, False, False),  # transparent
+    (True, True, False, False),  # transparent outlines
+)
+N_PASSES = len(PASS_CFG)
+
+# pass G-buffer channels; G_Z resets to 2.0, so "has a fragment" is G_Z < 2
+G_UIW, G_VIW, G_NXIW, G_NYIW, G_NZIW, G_IW, G_Z, G_ALPHA = range(8)
+G_CH = 8
+
+
+class FrameTables(NamedTuple):
+    rows: Tensor  # (CAP + pad, ROW_W) f32 pair rows, pass-major
+    starts: Tensor  # (N_PASSES, B) int32 into rows
+    counts: Tensor  # (N_PASSES, B) int32
+    overflow: Tensor  # () int64 pairs dropped at the capacity
+
+
+# ---------------------------------------------------------------------------
+# Pair pack (plain torch)
+# ---------------------------------------------------------------------------
+
+
+def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
+                   alpha: Tensor, is_hair: Tensor, ramp_gid: Tensor,
+                   tex_gid: Tensor, edge_gid: Tensor, by: int, bx: int, cap: int,
+                   with_attrs: bool):
+    """One pass -> (tab (T, ROW_W), bin_id (cap,), ok (cap,), tri_of_k
+    (cap,), total ()): the triangle rows and the exact (tile, triangle)
+    pair enumeration in triangle order, for :func:`pack_frame_rows`."""
+    t = tri.valid.shape[0]
+    dev = tri.valid.device
+    inv2a = tri.inv_area2
+    za = torch.sum(tri.ea * tri.z, dim=1) * inv2a
+    zb = torch.sum(tri.eb * tri.z, dim=1) * inv2a
+    zc = torch.sum(tri.ec * tri.z, dim=1) * inv2a
+
+    big = torch.tensor(1e9, device=dev)
+    xmin = torch.where(tri.valid, tri.sx.amin(1), big)
+    xmax = torch.where(tri.valid, tri.sx.amax(1), -big)
+    ymin = torch.where(tri.valid, tri.sy.amin(1), big)
+    ymax = torch.where(tri.valid, tri.sy.amax(1), -big)
+
+    ea = tri.ea * inv2a[:, None]
+    eb = tri.eb * inv2a[:, None]
+    ec = tri.ec * inv2a[:, None]
+    code = (torch.round(torch.clamp(alpha, 0.0, 1.0) * 1023.0)
+            + 1024.0 * (ramp_gid + 16.0 * tex_gid + 256.0 * edge_gid + 4096.0 * is_hair))
+    ig = torch.rsqrt(torch.clamp(ea * ea + eb * eb, min=1e-24))
+    zero = torch.zeros_like(code)
+    cols = [ea[:, 0], eb[:, 0], ec[:, 0], ea[:, 1], eb[:, 1], ec[:, 1],
+            ea[:, 2], eb[:, 2], ec[:, 2], za, zb, zc, ymin, ymax,
+            code, ig[:, 0], ig[:, 1], ig[:, 2], zero]
+    if with_attrs:
+        # attribute planes: three products that can cancel to far below
+        # their size, so they are summed in float64 and rounded once
+        iw = tri.inv_w[..., None]
+        vals = torch.cat([corner_uv * iw, corner_nrm * iw, iw], dim=-1).double()  # (T, 3, 6)
+        attr = torch.cat([torch.sum(e.double()[:, :, None] * vals, dim=1) for e in (ea, eb, ec)],
+                         dim=1).float()
+    else:
+        attr = torch.zeros((t, 18), device=dev)
+    tab = torch.cat([torch.stack(cols, dim=1), attr,
+                     torch.zeros((t, ROW_W - ROW_USED), device=dev)], dim=1)
+
+    # exact pair enumeration over each triangle's tile bounding box
+    def tile_of(v, size, n):
+        return torch.clamp(torch.floor(v / size), 0, n - 1).to(torch.int64)
+
+    bx0 = tile_of(xmin - 0.5, TILE_W, bx)
+    bx1 = tile_of(xmax + 0.5, TILE_W, bx)
+    by0 = tile_of(ymin - 0.5, TILE_H, by)
+    by1 = tile_of(ymax + 0.5, TILE_H, by)
+    nx = bx1 - bx0 + 1
+    live = tri.valid & (xmax >= xmin)
+    n_bins_tri = torch.where(live, nx * (by1 - by0 + 1), 0)
+    ends_tri = torch.cumsum(n_bins_tri, 0)
+    starts_tri = ends_tri - n_bins_tri
+    total = ends_tri[-1]
+    # run-length expansion: mark each triangle's first slot, cumsum
+    marks = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    marks.index_add_(0, torch.clamp(starts_tri, max=cap), torch.ones_like(starts_tri))
+    tri_of_k = torch.clamp(torch.cumsum(marks[:cap], 0) - 1, 0, t - 1)
+    k = torch.arange(cap, device=dev)
+    slot = k - starts_tri[tri_of_k]
+    ok = k < total
+    nx_k = torch.clamp(nx[tri_of_k], min=1)
+    sy = torch.div(slot, nx_k, rounding_mode="floor")
+    bin_id = (by0[tri_of_k] + sy) * bx + (bx0[tri_of_k] + (slot - sy * nx_k))
+    return tab, bin_id, ok, tri_of_k, total
+
+
+def pack_frame_rows(parts, by: int, bx: int) -> FrameTables:
+    """Merge all passes' pairs under one sort and one row gather.
+
+    Key = (pass * B + tile) << 32 | (tri + 1); one marker key per (pass,
+    tile) with tri field 0, plus a terminator, sorts right before its
+    segment, so starts[s] = pos(marker s) + 1 and counts[s] = pos(marker
+    s+1) - pos(marker s) - 1. Markers and dropped pairs gather a zero row.
+    """
+    assert len(parts) == N_PASSES
+    b_total = by * bx
+    nseg = N_PASSES * b_total
+    dev = parts[0][0].device
+    keys, offs = [], []
+    off = 0
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
+        keys.append(torch.where(ok, ((p * b_total + bin_id) << 32) + tri_of_k + 1,
+                                (nseg << 32) + 1))
+        offs.append(off)
+        off += tab.shape[0]
+        overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
+    markers = torch.arange(nseg + 1, dtype=torch.int64, device=dev) << 32
+    key, _ = torch.sort(torch.cat(keys + [markers]))
+    tri_f = key & 0xFFFFFFFF
+    sk = key >> 32
+    is_pair = (tri_f != 0) & (sk < nseg)
+    tab_all = torch.cat([pp[0] for pp in parts] + [torch.zeros((1, ROW_W), device=dev)])
+    pass_of = torch.where(is_pair, torch.div(sk, b_total, rounding_mode="floor"), 0)
+    offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
+    row_idx = torch.where(is_pair, offs_t[pass_of] + tri_f - 1, tab_all.shape[0] - 1)
+    rows = tab_all[row_idx]
+    p_s = torch.searchsorted(key, markers)  # marker positions (keys are unique)
+    starts = p_s[:-1] + 1
+    counts = p_s[1:] - p_s[:-1] - 1
+    n = key.shape[0]
+    pad = CHUNK + (-n) % CHUNK
+    rows = torch.cat([rows, torch.zeros((pad, ROW_W), device=dev)])
+    return FrameTables(
+        rows=rows.contiguous(),
+        starts=starts.reshape(N_PASSES, b_total).to(torch.int32).contiguous(),
+        counts=counts.reshape(N_PASSES, b_total).to(torch.int32).contiguous(),
+        overflow=overflow,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper and its plain twin
+# ---------------------------------------------------------------------------
+
+
+def _shade_inputs(shade_tables: SG.ShadeTables, lights, rim_intensity: float,
+                  eye_pos: Tensor, lod_bias) -> tuple[Tensor, Tensor]:
+    """-> (lcol (4, 3), misc (8,)): misc = [ambient, rim, eye xyz, atlas
+    stride, lod bias layer 0, lod bias layer 1]."""
+    dev = eye_pos.device
+    active = (torch.arange(4, device=dev) < lights.count).to(torch.float32)[:, None]
+    lcol = lights.color * lights.intensity[:, None] * active
+    misc = torch.stack([
+        lights.ambient.to(torch.float32).reshape(()),
+        torch.tensor(rim_intensity, dtype=torch.float32, device=dev),
+        eye_pos[0], eye_pos[1], eye_pos[2],
+        torch.tensor(float(shade_tables.atlas_stride), device=dev),
+        torch.tensor(float(lod_bias[0]), device=dev),
+        torch.tensor(float(lod_bias[1]), device=dev),
+    ])
+    return lcol.contiguous(), misc.contiguous()
+
+
+def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                      rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
+                      hp: int, wp: int, n_samples: int, use_mips: bool = False,
+                      lod_bias: tuple[float, float] = (0.0, 0.0),
+                      analytic: bool = False) -> Tensor:
+    """-> (2*O_CH, hp, wp) shade outputs (``shade_gpu`` channel layout).
+
+    CUDA tensors launch ``csrc/frame.cu``; CPU tensors run
+    :func:`render_megakernel_twin`, the same computation in plain torch.
+    """
+    if not tables.rows.is_cuda:
+        return render_megakernel_twin(
+            tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp,
+            wp=wp, n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias,
+            analytic=analytic)
+    if analytic:
+        n_samples = 1
+    if hp % TILE_H or wp % TILE_W or not 1 <= n_samples <= len(SAMPLE_OFFSETS):
+        raise ValueError(f"bad frame shape/samples: {hp}x{wp}, {n_samples}")
+    b_total = (hp // TILE_H) * (wp // TILE_W)
+    dev = tables.rows.device
+    lcol, misc = _shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    f32_args = {
+        "rows": tables.rows, "knot_tab": shade_tables.knot_tab,
+        "tex_tab": shade_tables.tex_tab, "edge_tab": shade_tables.edge_tab,
+        "ldir": lights.direction, "lcol": lcol, "misc": misc, "inv_vp": inv_vp,
+    }
+    for name, t in f32_args.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}")
+    if tables.rows.shape[1] != ROW_W:
+        raise ValueError(f"rows: need width {ROW_W}, got {tuple(tables.rows.shape)}")
+    for name, t in (("starts", tables.starts), ("counts", tables.counts)):
+        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
+                or tuple(t.shape) != (N_PASSES, b_total)):
+            raise ValueError(f"{name}: need contiguous int32 ({N_PASSES}, {b_total}) on {dev}")
+    if tuple(inv_vp.shape) != (4, 4) or tuple(lights.direction.shape) != (4, 3):
+        raise ValueError("inv_vp must be (4, 4) and light directions (4, 3)")
+    if (shade_tables.knot_tab.shape[1] != 3 * SG.N_KNOTS or shade_tables.edge_tab.shape[1] != 3
+            or shade_tables.tex_tab.shape[1] < 4):
+        raise ValueError("shade tables: need knot (Kr, 27), edge (Ke, 3), tex (Kt, >= 4)")
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    out = torch.empty((2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
+    lib = cuda_lib.library()
+    err = lib.reze_frame(
+        tables.rows.data_ptr(), tables.starts.data_ptr(), tables.counts.data_ptr(),
+        shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
+        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
+        shade_tables.tex_tab.shape[1],
+        shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
+        lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
+        out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "reze_frame")
+    render_megakernel.launches += 1
+    return out
+
+
+render_megakernel.launches = 0
+
+
+def _tiles_to_frame(x: Tensor, by: int, bx: int) -> Tensor:
+    """(..., B, 8, 128) tiles -> (..., hp, wp)."""
+    lead = x.shape[:-3]
+    x = x.reshape(lead + (by, bx, TILE_H, TILE_W)).transpose(-3, -2)
+    return x.reshape(lead + (by * TILE_H, bx * TILE_W))
+
+
+def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                           rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
+                           hp: int, wp: int, n_samples: int, use_mips: bool = False,
+                           lod_bias: tuple[float, float] = (0.0, 0.0),
+                           analytic: bool = False) -> Tensor:
+    """Plain torch version of :func:`render_megakernel`: all tiles at once,
+    one group of pairs per step, the same float operations in the same
+    order (products and sums each rounded, no fused multiply-add)."""
+    if analytic:
+        n_samples = 1
+    by, bx = hp // TILE_H, wp // TILE_W
+    b_total = by * bx
+    dev = tables.rows.device
+    f32 = torch.float32
+    lcol, misc = _shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    tile = torch.arange(b_total, device=dev)
+    x0f = ((tile % bx) * TILE_W).to(f32)[:, None]  # (B, 1)
+    y0f = ((tile // bx) * TILE_H).to(f32)[:, None]
+    xs8 = torch.arange(TILE_W, device=dev, dtype=f32) + 0.5  # tile-local
+    ys8 = torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + 0.5
+    jj = torch.arange(GROUP, device=dev)
+
+    zbuf = torch.ones((n_samples, b_total, TILE_H, TILE_W), device=dev)
+    stack = [torch.zeros((b_total, TILE_H, TILE_W), device=dev) for _ in range(2 * SG.L_CH)]
+    stencil = torch.zeros((b_total, TILE_H, TILE_W), device=dev)
+    starts = tables.starts.to(torch.int64)
+    counts = tables.counts.to(torch.int64)
+    n_rows = tables.rows.shape[0]
+
+    def plane(a, b, c):
+        # (B, G) plane -> (B, G, 8, 128) values at tile-local pixel centres
+        c = c + a * x0f + b * y0f
+        return (a[..., None, None] * xs8 + c[..., None, None]) + b[..., None, None] * ys8
+
+    for p, (outline, depth_write, write_stencil, use_stencil) in enumerate(PASS_CFG):
+        cnt = counts[p]
+        n_groups = int(-(-int(cnt.max()) // GROUP))
+        if n_groups == 0:
+            continue
+        gbuf = [torch.zeros((b_total, TILE_H, TILE_W), device=dev) for _ in range(G_CH)]
+        gbuf[G_Z] = torch.full((b_total, TILE_H, TILE_W), 2.0, device=dev)
+        won = torch.zeros((n_samples, b_total, TILE_H, TILE_W), device=dev)
+        for g in range(n_groups):
+            k = g * GROUP + jj  # (G,) pair index in the segment
+            valid = k[None, :] < cnt[:, None]  # (B, G)
+            idx = torch.clamp(starts[p][:, None] + k[None, :], max=n_rows - 1)
+            r = tables.rows[idx]  # (B, G, ROW_W)
+            col = lambda i: r[..., i]  # noqa: E731
+            ea = [col(C_E + 3 * e) for e in range(3)]
+            eb = [col(C_E + 3 * e + 1) for e in range(3)]
+            ev = [plane(ea[e], eb[e], col(C_E + 3 * e + 2)) for e in range(3)]
+            za, zb = col(C_Z), col(C_Z + 1)
+            zz = plane(za, zb, col(C_Z + 2))
+            vmask = valid[..., None, None]
+            any_pass = torch.zeros_like(zz, dtype=torch.bool)
+            if analytic:
+                ig = [col(C_IGRAD + e)[..., None, None] for e in range(3)]
+                cov = (torch.clamp(ev[0] * ig[0] + 0.5, 0.0, 1.0)
+                       * torch.clamp(ev[1] * ig[1] + 0.5, 0.0, 1.0)
+                       * torch.clamp(ev[2] * ig[2] + 0.5, 0.0, 1.0))
+                zrow = zbuf[0][:, None]
+                zok = (zz <= zrow) & (zz >= 0.0)
+                any_pass = (cov > 0.0) & vmask & zok
+                mn = torch.minimum(torch.minimum(ev[0], ev[1]), torch.minimum(ev[2], zz))
+                center = (mn >= 0) & (zz <= zrow) & vmask
+                zmin_c = torch.where(center, zz, 2.0).amin(1)
+                if depth_write:
+                    zbuf[0] = torch.minimum(zbuf[0], zmin_c)
+                won[0] = torch.maximum(won[0], torch.where(any_pass, cov, 0.0).amax(1))
+            else:
+                for s in range(n_samples):
+                    dx, dy = SAMPLE_OFFSETS[s]
+                    o = [(ea[e] * dx + eb[e] * dy)[..., None, None] for e in range(3)]
+                    zs = zz + (za * dx + zb * dy)[..., None, None]
+                    zrow = zbuf[s][:, None]
+                    mn = torch.minimum(torch.minimum(ev[0] + o[0], ev[1] + o[1]),
+                                       torch.minimum(ev[2] + o[2], zs))
+                    passed = (mn >= 0) & (zs <= zrow) & vmask
+                    zmin_s = torch.where(passed, zs, 2.0).amin(1)
+                    if depth_write:
+                        zbuf[s] = torch.minimum(zbuf[s], zmin_s)
+                    won[s] = torch.maximum(won[s], passed.any(1).to(f32))
+                    any_pass = any_pass | passed
+
+            # winner: latest-drawn pair at minimum centre z
+            zmask = torch.where(any_pass, zz, 2.0)
+            zmin = zmask.amin(1)
+            win = torch.where(zmask == zmin[:, None], jj[:, None, None], -1).amax(1)
+            upd = (zmin <= gbuf[G_Z]) & (zmin < 2.0)
+            wsel = torch.clamp(win, min=0).reshape(b_total, -1)
+
+            def pick(v):  # (B, G) per-pair value -> (B, 8, 128) at the winner
+                return torch.gather(v, 1, wsel).reshape(zmin.shape)
+
+            gbuf[G_Z] = torch.where(upd, zmin, gbuf[G_Z])
+            gbuf[G_ALPHA] = torch.where(upd, pick(col(C_ALPHA)), gbuf[G_ALPHA])
+            if not outline:
+                for ch in range(6):
+                    a = col(C_ATTR + ch)
+                    b = col(C_ATTR + 6 + ch)
+                    c = col(C_ATTR + 12 + ch) + a * x0f + b * y0f
+                    val = (pick(a) * xs8 + pick(c)) + pick(b) * ys8
+                    gbuf[G_UIW + ch] = torch.where(upd, val, gbuf[G_UIW + ch])
+
+        # push the pass's fragments onto the two-layer stack
+        cover = torch.zeros_like(stencil)
+        for s in range(n_samples):
+            cover = cover + won[s]
+        cover = cover * (1.0 / n_samples)
+        hit = gbuf[G_Z] < 2.0
+        code = torch.round(gbuf[G_ALPHA]).to(torch.int32)
+        a = (code & 1023).to(f32) * (1.0 / 1023.0)
+        rest = code >> 10
+        ramp_g = (rest & 15).to(f32)
+        tex_g = ((rest >> 4) & 15).to(f32)
+        edge_g = ((rest >> 8) & 15).to(f32)
+        hair_g = ((rest >> 12) & 1).to(f32)
+        if use_stencil:
+            a = a * torch.where((stencil > 0.5) & (hair_g > 0.5), 0.5, 1.0)
+        a_eff = a * cover
+        present = hit & (a_eff >= 0.001)
+        a_eff = torch.where(present, a_eff, 0.0)
+        opaque = present & (a_eff > 0.999)
+        displace = present & ~opaque & (stack[SG.L_CH + SG.L_AEFF] > 0.0)
+        for ch in range(SG.L_CH):
+            stack[ch] = torch.where(opaque, 0.0,
+                                    torch.where(displace, stack[SG.L_CH + ch], stack[ch]))
+        frag = [gbuf[G_UIW], gbuf[G_VIW], gbuf[G_NXIW], gbuf[G_NYIW], gbuf[G_NZIW],
+                gbuf[G_IW], gbuf[G_Z], a_eff,
+                torch.full_like(a_eff, 1.0 if outline else 0.0), ramp_g, tex_g, edge_g]
+        for ch in range(SG.L_CH):
+            stack[SG.L_CH + ch] = torch.where(present, frag[ch], stack[SG.L_CH + ch])
+        if write_stencil:
+            stencil = torch.where(hit & (cover > 0.0), 1.0, stencil)
+
+    # shade both layers of every tile
+    xs =(torch.arange(TILE_W, device=dev, dtype=f32) + x0f[:, :, None]) + 0.5
+    ys = (torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + y0f[:, :, None]) + 0.5
+    xs = xs.expand(b_total, TILE_H, TILE_W)
+    ys = ys.expand(b_total, TILE_H, TILE_W)
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    out = []
+    for layer in range(2):
+        stk = stack[layer * SG.L_CH:(layer + 1) * SG.L_CH]
+        shaded = SG.shade_layer(stk, shade_tables.knot_tab, shade_tables.tex_tab,
+                                shade_tables.edge_tab, lights.direction, lcol, misc,
+                                inv_vp, xs, ys, wp, hp, n_levels, layer)
+        present = (stk[SG.L_AEFF] > 0.0).flatten(1).any(1)[:, None, None]
+        for ch, v in enumerate(shaded):
+            empty = -1.0 if ch == SG.O_TEX else 0.0
+            out.append(torch.where(present, v, empty))
+        out.append(stk[SG.L_AEFF])
+    return _tiles_to_frame(torch.stack(out), by, bx)

@@ -1,0 +1,129 @@
+"""The per-character simulate + render step (counterpart of
+``reze_tpu/step.py``).
+
+``make_step(model, cfg)`` returns ``step(state, dt, view_proj, eye_pos,
+lights, track, breath) -> (state', frame (H, W, 3))``. ``simulate`` runs
+animation sampling, breathing, tweens, bone/UV/material morphs, CCD IK,
+FK and skinning; the frame goes through ``pipeline_gpu.render_frame_mega``
+(the frame megakernel and the composite kernel).
+
+Not ported yet, and refused rather than skipped: rigid-body physics, the
+per-pass and XLA-oracle renderers, the stream/mxu/hybrid rasterizers and
+bilinear albedo (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .anim import sampler, tween
+from .core import math3d as m3
+from .core.types import DiagState, EngineConfig, ModelArrays, SceneState
+from .kernels import shade_gpu as SG
+from .kernels.skinning import skin_vertices
+from .render import pipeline_gpu
+from .skeleton import fk
+from .skeleton import ik as ik_mod
+
+
+def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
+    if cfg.enable_physics and model.physics.n_bodies > 0:
+        raise NotImplementedError(
+            "rigid-body physics is not ported yet (ROADMAP queue 1, item 6); "
+            "use EngineConfig(enable_physics=False)")
+    unported = {
+        "renderer": cfg.renderer not in ("auto", "tpu"),
+        "rasterizer": cfg.rasterizer != "group",
+        "use_megakernel": not cfg.use_megakernel,
+        "layered_shading": not cfg.layered_shading,
+        "albedo_bilinear": cfg.albedo_bilinear,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"EngineConfig {', '.join(bad)} selects a path that is not ported "
+            "yet (ROADMAP queue 1); only the group megakernel path runs")
+
+
+def make_step(model: ModelArrays, cfg: EngineConfig):
+    """-> step(state, dt, view_proj, eye_pos, lights, track, breath)
+    -> (state', frame (H, W, 3)). All tensors on the model's device."""
+    _check_config(model, cfg)
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    shade_tables = SG.pack_shade_tables(model.materials, model.atlas)
+
+    def simulate(state: SceneState, dt, track, breath):
+        """Animation + IK/FK + skinning -> (t, rot, trans, mw, tween_state,
+        pos, nrm, uvs, mat_mod)."""
+        t = state.time + dt
+        clip_t = t - state.play_t0
+
+        # 1. animation sampling
+        srot, strans = sampler.sample_bones(track, clip_t)
+        use = (track.has_track & state.playing)[:, None]
+        rot = torch.where(use, srot, state.local_rot)
+        trans = torch.where(use, strans, state.local_trans)
+
+        # 1b. breathing overlay after the clip ends
+        breath_t = clip_t - breath["start"]
+        breathing = state.playing & (breath_t > 0.0)
+        bq = sampler.breathing_rotation(breath["base"], breath["ranges"],
+                                        torch.clamp(breath_t, min=0.0),
+                                        breath["half_cycle"])
+        rot = torch.where((breath["mask"] & breathing)[:, None], bq, rot)
+
+        # 1c. morph weights from the track while playing
+        mw = torch.where(state.playing, sampler.sample_morphs(track, clip_t),
+                         state.morph_weights)
+
+        # 2. manual tweens override while active
+        rot, tween_state = tween.apply_tweens(state.tween, rot, t)
+
+        # 2b. bone morphs (rotations stored as rotation vectors)
+        if model.morphs.has_bone:
+            trans = trans + torch.einsum("m,mjc->jc", mw, model.morphs.bone_trans)
+            rv = torch.einsum("m,mjc->jc", mw, model.morphs.bone_rotvec)
+            rot = m3.quat_mul(rot, m3.quat_from_rotvec(rv))
+
+        # 2c. uv morphs
+        uvs = None
+        if model.morphs.has_uv:
+            uvs = model.geometry.uvs + torch.einsum("m,mvc->vc", mw, model.morphs.uv_offsets)
+
+        # 2d. material morphs -> alpha / edge-alpha factors
+        mat_mod = None
+        if model.morphs.has_material:
+            mat_mod = (1.0 + mw @ model.morphs.mat_alpha_dmul,
+                       mw @ model.morphs.mat_alpha_add,
+                       1.0 + mw @ model.morphs.mat_edge_a_dmul,
+                       mw @ model.morphs.mat_edge_a_add)
+
+        # 3. CCD IK, then FK
+        if cfg.enable_ik and model.ik.n_chains > 0:
+            rot = ik_mod.solve_ik(model.skeleton, model.ik, rot, trans)
+        wq, wp = fk.world_transforms(model.skeleton, rot, trans)
+
+        # 4. skinning (morph blend + LBS/SDEF)
+        palette = fk.skin_palette(model.skeleton, wq, wp)
+        pos, nrm = skin_vertices(model.geometry, model.skinning, palette,
+                                 morphs=model.morphs, morph_weights=mw,
+                                 world_quat_palette=wq)
+        return t, rot, trans, mw, tween_state, pos, nrm, uvs, mat_mod
+
+    def step(state: SceneState, dt, view_proj, eye_pos, lights, track, breath):
+        t, rot, trans, mw, tween_state, pos, nrm, uvs, mat_mod = simulate(
+            state, dt, track, breath)
+        frame, pair_overflow = pipeline_gpu.render_frame_mega(
+            model, cfg, dims, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
+            mat_mod=mat_mod, shade_tables=shade_tables)
+        new_state = dataclasses.replace(
+            state, time=t, local_rot=rot, local_trans=trans, morph_weights=mw,
+            tween=tween_state,
+            diag=DiagState(pair_overflow=pair_overflow,
+                           contact_overflow=torch.zeros_like(pair_overflow)))
+        return new_state, frame
+
+    step.simulate = simulate
+    return step

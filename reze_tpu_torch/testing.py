@@ -1,0 +1,317 @@
+"""Synthetic inputs for tests and the GPU smoke run.
+
+``make_test_model`` builds the same tiny but complete model as
+``reze_tpu.testing.make_test_model`` (identical arrays for the same
+arguments): a bone chain with an append, one IK chain, one textured quad
+per draw class, one vertex morph and two rigid bodies. ``random_pass_inputs``
+makes seeded random triangles for the pair-pack and kernel checks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import bridge
+from .core import types as T
+from .core.build import build_mip_chain, build_quad_chain, build_quad_flat
+
+
+def make_test_model(n_bones: int = 8, j_pad: int = 8, v_pad: int = 64,
+                    tex_hw: tuple[int, int] = (8, 8),
+                    device="cpu") -> T.ModelArrays:
+    j = j_pad
+    parent = np.full(j, -1, np.int32)
+    bind = np.zeros((j, 3), np.float32)
+    for i in range(1, n_bones):
+        parent[i] = i - 1
+        bind[i] = (0, 1, 0)
+    abspos = np.cumsum(bind, axis=0)
+    ap_parent = np.full(j, -1, np.int32)
+    ap_ratio = np.zeros(j, np.float32)
+    ap_rot = np.zeros(j, bool)
+    if n_bones >= 4:
+        ap_parent[3] = 1
+        ap_ratio[3] = 0.5
+        ap_rot[3] = True
+    steps = max(1, int(np.ceil(np.log2(n_bones + 1))))
+    skeleton = T.Skeleton(
+        parent=parent, bind_trans=bind, inv_bind_trans=-abspos,
+        append_parent=ap_parent, append_ratio=ap_ratio, append_rotate=ap_rot,
+        append_move=np.zeros(j, bool), after_physics=np.zeros(j, bool),
+        n_bones=n_bones, doubling_steps=steps,
+    )
+    ik = T.IKChains(
+        ik_bone=np.array([n_bones - 1], np.int32),
+        target=np.array([n_bones - 2], np.int32),
+        loop_count=np.array([4], np.int32),
+        limit_angle=np.array([1.0], np.float32),
+        links=np.array([[n_bones - 3, n_bones - 4]], np.int32),
+        link_has_limit=np.zeros((1, 2), bool),
+        link_limit_min=np.zeros((1, 2, 3), np.float32),
+        link_limit_max=np.zeros((1, 2, 3), np.float32),
+        max_loops=4, n_chains=1,
+    )
+
+    # one quad per class, stacked vertically, skinned to bones
+    positions = np.zeros((v_pad, 3), np.float32)
+    normals = np.zeros((v_pad, 3), np.float32)
+    normals[:, 2] = -1.0
+    uvs = np.zeros((v_pad, 2), np.float32)
+    tris, tri_mat = [], []
+    for c in range(4):
+        base = c * 4
+        y0 = float(c)
+        quad = [(-0.5, y0, 0.0), (0.5, y0, 0.0), (0.5, y0 + 0.8, 0.0), (-0.5, y0 + 0.8, 0.0)]
+        for k, p in enumerate(quad):
+            positions[base + k] = p
+            uvs[base + k] = (k % 2, k // 2)
+        tris += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+        tri_mat += [c, c]
+    t = len(tris)
+    t_pad = T.round_up(t, 8)
+    tris_arr = np.zeros((t_pad, 3), np.int32)
+    tris_arr[:t] = tris
+    mat_arr = np.zeros(t_pad, np.int32)
+    mat_arr[:t] = tri_mat
+    ranges = tuple((c * 2, 2, 2) if c < 3 else (6, 2, t_pad - 6) for c in range(4))
+    geometry = T.Geometry(
+        positions=positions, normals=normals, uvs=uvs,
+        tris=tris_arr, tri_mat=mat_arr,
+        # reversed winding: flat quads need the flip to behave like the
+        # inverted hull of a closed mesh
+        outline_tris=tris_arr[:, [0, 2, 1]].copy(), outline_tri_mat=mat_arr.copy(),
+        n_vertices=16, class_ranges=ranges, outline_class_ranges=ranges,
+    )
+
+    joints4 = np.zeros((v_pad, 4), np.int32)
+    weights4 = np.zeros((v_pad, 4), np.float32)
+    joints4[:, 0] = np.minimum(np.arange(v_pad) // 4, n_bones - 1)
+    weights4[:, 0] = 1.0
+    dense = np.zeros((v_pad, j), np.float32)
+    dense[np.arange(v_pad), joints4[:, 0]] = 1.0
+    skinning = T.Skinning(
+        joints=joints4, weights=weights4, weights_dense=dense,
+        sdef_c=None, sdef_r0=None, sdef_r1=None, is_sdef=None,
+    )
+
+    m = 4
+    lut = np.tile(np.linspace(0.5, 1.0, 256, dtype=np.float32)[None, :, None], (m, 1, 3))
+    materials = T.Materials(
+        alpha=np.array([1.0, 1.0, 1.0, 0.5], np.float32),
+        diffuse_rgb=np.ones((m, 3), np.float32),
+        edge_color=np.tile(np.array([0, 0, 0, 1], np.float32), (m, 1)),
+        edge_size=np.ones(m, np.float32),
+        tex_id=np.zeros(m, np.int32),
+        toon_lut=lut,
+        is_eye=np.array([False, True, False, False]),
+        is_hair=np.array([False, False, True, False]),
+        is_transparent=np.array([False, False, False, True]),
+    )
+    th, tw = tex_hw
+    gy, gx = np.meshgrid(np.linspace(60, 220, th), np.linspace(40, 240, tw),
+                         indexing="ij")
+    texels = np.stack([gx, gy, 0.5 * (gx + gy), np.full((th, tw), 255.0)], -1)[None]
+    tex_u8 = texels.astype(np.uint8)
+    tex_sizes = np.array([[th, tw]], np.int32)
+    mip_flat, mip_base = build_mip_chain(tex_u8, tex_sizes)
+    atlas = T.TextureAtlas(texels=tex_u8, sizes=tex_sizes,
+                           mip_flat=mip_flat, mip_base=mip_base,
+                           mip_quad=build_quad_chain(mip_flat, mip_base, tex_sizes),
+                           flat_quad=build_quad_flat(tex_u8, tex_sizes))
+
+    morphs_off = np.zeros((2, v_pad, 3), np.float32)
+    morphs_off[0, 0] = (0.0, 0.2, 0.0)
+    morphs = empty_morph_tables(morphs_off, n_mats=1)
+
+    # kinematic body on bone 1, dynamic on bone 2, one spring joint
+    nb = nj = 8
+    q0 = np.zeros((nb, 4), np.float32)
+    q0[:, 3] = 1
+    jq = np.zeros((nj, 4), np.float32)
+    jq[:, 3] = 1
+    bone_index = np.full(nb, -1, np.int32)
+    bone_index[0] = 1
+    bone_index[1] = 2
+    is_dyn = np.zeros(nb, bool)
+    is_dyn[1] = True
+    zeros3 = np.zeros((nb, 3), np.float32)
+    physics = T.PhysicsModel(
+        bone_index=bone_index, shape=np.zeros(nb, np.int32),
+        size=np.full((nb, 3), 0.3, np.float32),
+        mass=np.where(is_dyn, 1.0, 0.0).astype(np.float32),
+        inv_mass=np.where(is_dyn, 1.0, 0.0).astype(np.float32),
+        inv_inertia_local=np.full((nb, 3), 10.0, np.float32),
+        linear_damping=np.full(nb, 0.1, np.float32),
+        angular_damping=np.full(nb, 0.1, np.float32),
+        restitution=np.zeros(nb, np.float32), friction=np.full(nb, 0.5, np.float32),
+        is_dynamic=is_dyn, no_contact=np.ones(nb, bool),
+        group=np.zeros(nb, np.int32), collision_mask=np.zeros(nb, np.int32),
+        body_offset_pos=zeros3, body_offset_quat=q0, bind_pos=zeros3.copy(),
+        valid=np.array([True, True] + [False] * (nb - 2)),
+        joint_body_a=np.array([0] + [-1] * (nj - 1), np.int32),
+        joint_body_b=np.array([1] + [-1] * (nj - 1), np.int32),
+        joint_pos_a=np.zeros((nj, 3), np.float32), joint_quat_a=jq,
+        joint_pos_b=np.array([[0, -1, 0]] + [[0, 0, 0]] * (nj - 1), np.float32),
+        joint_quat_b=jq.copy(),
+        joint_lin_min=np.zeros((nj, 3), np.float32),
+        joint_lin_max=np.zeros((nj, 3), np.float32),
+        joint_ang_min=np.full((nj, 3), -2.0, np.float32),
+        joint_ang_max=np.full((nj, 3), 2.0, np.float32),
+        joint_spring_lin=np.zeros((nj, 3), np.float32),
+        joint_spring_ang=np.full((nj, 3), 5.0, np.float32),
+        joint_valid=np.array([True] + [False] * (nj - 1)),
+        n_bodies=2, n_joints=1,
+    )
+    model = T.ModelArrays(
+        skeleton=skeleton, ik=ik, skinning=skinning, geometry=geometry,
+        materials=materials, atlas=atlas, morphs=morphs, physics=physics,
+    )
+    return bridge.from_jax_arrays(model, device)
+
+
+def empty_morph_tables(offsets: np.ndarray, n_mats: int) -> T.Morphs:
+    """Morphs with only vertex offsets populated (numpy leaves)."""
+    nm = offsets.shape[0]
+    return T.Morphs(
+        offsets=offsets,
+        bone_trans=np.zeros((1, 1, 3), np.float32),
+        bone_rotvec=np.zeros((1, 1, 3), np.float32),
+        uv_offsets=np.zeros((1, 1, 2), np.float32),
+        mat_alpha_dmul=np.zeros((nm, n_mats), np.float32),
+        mat_alpha_add=np.zeros((nm, n_mats), np.float32),
+        mat_edge_a_dmul=np.zeros((nm, n_mats), np.float32),
+        mat_edge_a_add=np.zeros((nm, n_mats), np.float32),
+        n_morphs=nm,
+    )
+
+
+def random_shade_inputs(seed: int, n_groups: int = 3) -> dict:
+    """Seeded shade tables for the kernel checks, as numpy: ``n_groups``
+    toon ramps and edge colours, three textures of odd sizes (the last one
+    flagged untextured) with their dense mip chain, an eye position and an
+    inverse view-projection. Keys: knot_tab, tex_tab, edge_tab,
+    atlas_stride, texels, mip_flat, eye_pos, inv_vp."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([[8, 8], [7, 11], [16, 4]], np.int32)
+    n, mh, mw = len(sizes), 16, 16
+    texels = rng.integers(0, 256, (n, mh, mw, 4)).astype(np.uint8)
+    mip_flat, mip_base = build_mip_chain(texels, sizes)
+    valid = np.array([1.0, 1.0, 0.0], np.float32)
+    tex_tab = np.concatenate([
+        sizes.astype(np.float32), (np.arange(n) * mh * mw)[:, None].astype(np.float32),
+        valid[:, None], mip_base.astype(np.float32)], axis=1)
+    return dict(
+        knot_tab=rng.uniform(0.3, 1.0, (n_groups, 27)).astype(np.float32),
+        tex_tab=tex_tab[:n_groups],
+        edge_tab=rng.uniform(0.0, 1.0, (n_groups, 3)).astype(np.float32),
+        atlas_stride=mw, texels=texels, mip_flat=mip_flat,
+        eye_pos=rng.normal(size=3).astype(np.float32),
+        inv_vp=rng.normal(size=(4, 4)).astype(np.float32),
+    )
+
+
+def random_pass_inputs(seed: int, n_tris: tuple[int, ...], n_groups: int = 3):
+    """Seeded random triangles for each of the 7 raster passes, as numpy.
+
+    Per pass: ``corners_clip`` (T, 3, 4) in clip space with w in [0.5, 2]
+    (about a tenth of the triangles get a w <= 0 corner and are rejected at
+    setup), ``corner_uv`` (T, 3, 2), ``corner_nrm`` (T, 3, 3), ``valid``
+    (T,) and per-triangle material columns ``alpha``, ``is_hair``,
+    ``ramp``, ``tex``, ``edge`` with group ids below ``n_groups``.
+    Triangles are small relative to the frame, so a tile segment of the
+    first (largest) pass holds more than one 128-pair chunk.
+    """
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in n_tris:
+        center = rng.uniform(-1.0, 1.0, (t, 1, 2))
+        spread = rng.uniform(0.05, 0.5, (t, 1, 1))
+        xy = center + spread * rng.normal(size=(t, 3, 2))
+        w = rng.uniform(0.5, 2.0, (t, 3))
+        w[rng.random(t) < 0.1, 0] = -0.5
+        z = rng.uniform(0.05, 0.95, (t, 3))
+        clip = np.concatenate(
+            [xy * w[..., None], (z * w)[..., None], w[..., None]], axis=-1)
+        nrm = rng.normal(size=(t, 3, 3))
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        out.append(dict(
+            corners_clip=clip.astype(np.float32),
+            corner_uv=rng.uniform(-0.5, 1.5, (t, 3, 2)).astype(np.float32),
+            corner_nrm=nrm.astype(np.float32),
+            valid=rng.random(t) < 0.95,
+            alpha=rng.choice([1.0, 1.0, 0.5, 0.2], t).astype(np.float32),
+            is_hair=(rng.random(t) < 0.3).astype(np.float32),
+            ramp=rng.integers(0, n_groups, t).astype(np.float32),
+            tex=rng.integers(0, n_groups, t).astype(np.float32),
+            edge=rng.integers(0, n_groups, t).astype(np.float32),
+        ))
+    return out
+
+
+def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
+                        device="cpu"):
+    """Frame-kernel tables (``frame_gpu.FrameTables``) for an
+    (hp, wp) frame from :func:`random_pass_inputs`, packed with the
+    engine's per-pass culling and pair capacity."""
+    import torch
+
+    from .kernels import frame_gpu as FG
+    from .render import raster
+    from .render.pipeline_gpu import _PASS_SPECS
+
+    parts = []
+    for (_, cull, outline), d in zip(_PASS_SPECS, random_pass_inputs(seed, n_tris)):
+        t = {k: torch.as_tensor(v, device=device) for k, v in d.items()}
+        tri = raster.setup_triangles(t["corners_clip"], t["valid"], wp, hp, cull)
+        cap = -(-int(len(d["valid"]) * 4.0 + 1024) // FG.CHUNK) * FG.CHUNK
+        parts.append(FG.pack_pass_part(
+            tri, t["corner_uv"], t["corner_nrm"], t["alpha"], t["is_hair"], t["ramp"],
+            t["tex"], t["edge"], hp // FG.TILE_H, wp // FG.TILE_W, cap,
+            with_attrs=not outline))
+    return FG.pack_frame_rows(parts, hp // FG.TILE_H, wp // FG.TILE_W)
+
+
+def decoded_index(o, layer: int) -> np.ndarray:
+    """Nearest texel index per pixel of a (2*O_CH, hp, wp) shade output,
+    decoded the way the composite does; -1 where the layer is untextured."""
+    from .kernels import shade_gpu as SG
+
+    o = np.asarray(o)
+    b = layer * SG.O_CH
+    dxdy = o[b + SG.O_DXDY]
+    dx = np.fmod(dxdy, 2.0)
+    dy = (dxdy - dx) * 0.5
+    near = (o[b + SG.O_TEX] + np.where(o[b + SG.O_FX] > 0.5, dx, 0.0)
+            + np.where(o[b + SG.O_FY] > 0.5, dy, 0.0))
+    return np.where(o[b + SG.O_TEX] >= 0, np.maximum(near, 0).astype(np.int64), -1)
+
+
+# bounds of a shade-output comparison (frame kernel against its twin or
+# the Pallas reference): decoded texel index, a_eff (within AEFF_TOL) and
+# the footprint step agree on at least SAME_FRAC of each layer's pixels,
+# and lit rgb + rim agree within LIT_TOL on those pixels
+SAME_FRAC = 0.995
+AEFF_TOL = 1e-5
+LIT_TOL = 1e-4
+
+
+def compare_shade(o_test, o_ref) -> dict:
+    """-> {"same_frac": worst layer's agreeing fraction, "max_abs_err":
+    largest lit/rim difference on agreeing pixels, "ok": within bounds,
+    "same": per-layer boolean masks}."""
+    from .kernels import shade_gpu as SG
+
+    o_test, o_ref = np.asarray(o_test), np.asarray(o_ref)
+    fracs, errs, masks = [], [0.0], []
+    for layer in range(2):
+        b = layer * SG.O_CH
+        same = ((decoded_index(o_test, layer) == decoded_index(o_ref, layer))
+                & (np.abs(o_test[b + SG.O_AEFF] - o_ref[b + SG.O_AEFF]) <= AEFF_TOL)
+                & (o_test[b + SG.O_DXDY] == o_ref[b + SG.O_DXDY]))
+        fracs.append(float(same.mean()))
+        masks.append(same)
+        for ch in (SG.O_LR, SG.O_LG, SG.O_LB, SG.O_RIM):
+            d = np.abs(o_test[b + ch] - o_ref[b + ch])[same]
+            errs.append(float(d.max()) if d.size else 0.0)
+    return {"same_frac": min(fracs), "max_abs_err": max(errs),
+            "ok": min(fracs) >= SAME_FRAC and max(errs) <= LIT_TOL, "same": masks}

@@ -1,0 +1,176 @@
+"""The port's whole step against the JAX package's ``make_step`` with
+``renderer="tpu"`` (the Pallas kernels in interpret mode: the path the
+engine runs, not the XLA oracle) on the synthetic model at 128x64, physics
+off, for three frames; the second frame sets a morph weight and starts a
+bone tween.
+
+Bounds: frames within 1/255 on >= 99 % of pixels; ``time`` and
+``pair_overflow`` exact.
+
+The model's texture is 16x2 texels. Its quads map u to 0 along each quad's
+diagonal from both sides, and a pixel on that seam takes its texel from
+whichever of the two coplanar triangles wins a depth comparison that the
+last bit of their plane constants decides. XLA compiles the JAX side with
+fused multiply-adds and the port rounds each product, so the two resolve
+those ties differently, and with the default 8x8 texture the seam then
+shows as a line of wrapped texels. Two texel columns keep the seam's
+colour out of the comparison; the v direction and the mip chain still
+sample a gradient.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reze_tpu import camera as jcam
+from reze_tpu import testing as jtesting
+from reze_tpu.anim import sampler as jsampler
+from reze_tpu.anim import tween as jtween
+from reze_tpu.core import types as JT
+from reze_tpu.render import pipeline as jpipe
+from reze_tpu.step import make_step as jmake_step
+from reze_tpu_torch import bridge
+from reze_tpu_torch import testing as ptesting
+from reze_tpu_torch.anim import tween as ptween
+from reze_tpu_torch.core import types as PT
+from reze_tpu_torch.render import pipeline_gpu
+from reze_tpu_torch.step import make_step as pmake_step
+
+W, H = 128, 64
+TEX_HW = (16, 2)
+N_FRAMES = 3
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tween_args(j):
+    mask = np.zeros(j, bool)
+    mask[2] = True
+    targets = np.zeros((j, 4), np.float32)
+    targets[:, 3] = 1.0
+    targets[2] = (0.0, 0.0, np.sin(0.2), np.cos(0.2))  # 0.4 rad about z
+    return mask, targets
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jmodel = jtesting.make_test_model(tex_hw=TEX_HW)
+    pmodel = ptesting.make_test_model(tex_hw=TEX_HW)
+    jcfg = JT.EngineConfig(width=W, height=H, enable_physics=False, renderer="tpu")
+    pcfg = PT.EngineConfig(width=W, height=H, enable_physics=False)
+    cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
+                      aspect=W / H)
+    vp, eye = np.array(cam.view_proj()), np.array(cam.position())
+    j, nm = jmodel.skeleton.j, jmodel.morphs.offsets.shape[0]
+    track = jax.device_get(jsampler.empty_animation(j, nm))
+    breath = {"mask": np.zeros(j, bool), "ranges": np.zeros(j, np.float32),
+              "base": np.tile(np.array([0, 0, 0, 1], np.float32), (j, 1)),
+              "half_cycle": np.float32(2.0), "start": np.float32(np.inf)}
+    jlights = jpipe.make_lights(jcfg)
+    jargs = (jnp.asarray(vp), jnp.asarray(eye), jlights, jax.device_put(track),
+             jax.device_put(breath))
+    pargs = (torch.as_tensor(vp), torch.as_tensor(eye),
+             bridge.from_jax_arrays(jax.device_get(jlights)),
+             bridge.from_jax_arrays(track), bridge.from_jax_arrays(breath))
+    jstep = jax.jit(jmake_step(jmodel, jcfg))
+    pstep = pmake_step(pmodel, pcfg)
+    js, ps = JT.init_scene_state(jmodel), PT.init_scene_state(pmodel)
+    out = []
+    for f in range(N_FRAMES):
+        if f == 1:
+            mask, targets = _tween_args(j)
+            jtw, jrot = jtween.start_tweens(js.tween, js.local_rot, js.time,
+                                            jnp.asarray(mask), jnp.asarray(targets),
+                                            jnp.float32(0.05))
+            js = js.replace(tween=jtw, local_rot=jrot,
+                            morph_weights=jnp.asarray([0.8, 0.0]))
+            ptw, prot = ptween.start_tweens(ps.tween, ps.local_rot, ps.time,
+                                            torch.as_tensor(mask), torch.as_tensor(targets),
+                                            torch.tensor(0.05))
+            ps = dataclasses.replace(ps, tween=ptw, local_rot=prot,
+                                     morph_weights=torch.tensor([0.8, 0.0]))
+        js, jf = jstep(js, jnp.float32(1 / 60), *jargs)
+        ps, pf = pstep(ps, torch.tensor(1 / 60), *pargs)
+        out.append(dict(jframe=np.asarray(jf), pframe=pf.numpy(),
+                        jstate=jax.device_get(js), pstate=ps))
+    return out
+
+
+@pytest.mark.parametrize("f", range(N_FRAMES))
+def test_step_frame_matches(runs, f):
+    ref, port = runs[f]["jframe"], runs[f]["pframe"]
+    assert port.shape == ref.shape == (H, W, 3)
+    assert np.isfinite(port).all()
+    diff = np.abs(port - ref).max(-1)
+    assert (diff <= 1.0 / 255.0).mean() >= 0.99, (diff > 1 / 255).mean()
+    assert (ref.sum(-1) > 0.01).mean() > 0.05  # the scene draws
+
+
+@pytest.mark.parametrize("f", range(N_FRAMES))
+def test_step_state_matches(runs, f):
+    js, ps = runs[f]["jstate"], runs[f]["pstate"]
+    assert ps.time.item() == float(js.time)
+    assert ps.diag.pair_overflow.item() == int(js.diag.pair_overflow) == 0
+    np.testing.assert_allclose(ps.local_rot.numpy(), js.local_rot, atol=1e-5)
+    np.testing.assert_array_equal(ps.morph_weights.numpy(), js.morph_weights)
+    np.testing.assert_array_equal(ps.tween.active.numpy(), js.tween.active)
+
+
+def test_morph_and_tween_change_the_frame(runs):
+    assert np.abs(runs[1]["pframe"] - runs[0]["pframe"]).max() > 0.1
+
+
+def test_physics_refused():
+    model = ptesting.make_test_model()
+    with pytest.raises(NotImplementedError, match="physics"):
+        pmake_step(model, PT.EngineConfig(width=W, height=H))
+
+
+@pytest.mark.parametrize("change", [
+    {"rasterizer": "stream"}, {"use_megakernel": False}, {"layered_shading": False},
+    {"albedo_bilinear": True}, {"renderer": "xla"},
+])
+def test_unported_paths_refused(change):
+    cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
+    with pytest.raises(NotImplementedError):
+        pmake_step(ptesting.make_test_model(), cfg)
+
+
+def test_mat_mod_matches():
+    """Material-morph alpha factors on the push table, as the JAX path
+    applies them."""
+    rng = np.random.default_rng(3)
+    tab = rng.uniform(0, 1, (4, 7)).astype(np.float32)
+    mm = [rng.uniform(-1, 2, 4).astype(np.float32) for _ in range(4)]
+    a_scale, a_add, e_scale, e_add = (jnp.asarray(x) for x in mm)
+    ref = jnp.asarray(tab)
+    ref = ref.at[:, 0].set(jnp.clip(ref[:, 0] * a_scale + a_add, 0.0, 1.0))
+    ref = ref.at[:, 1].set(jnp.clip(ref[:, 1] * e_scale + e_add, 0.0, 1.0))
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    tables = SG.ShadeTables(torch.as_tensor(tab), None, None, None, 8)
+    port = pipeline_gpu._apply_mat_mod(tables, [torch.as_tensor(x) for x in mm])
+    np.testing.assert_allclose(port.push_tab.numpy(), np.asarray(ref), atol=1e-6)
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax made unimportable."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "import reze_tpu_torch\n"
+        "for m in pkgutil.walk_packages(reze_tpu_torch.__path__, 'reze_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import reze_tpu_torch.step\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
