@@ -17,7 +17,7 @@ from ..core.types import AnimationTrack
 Tensor = torch.Tensor
 
 
-def empty_animation(j_pad: int, nm_pad: int, device="cpu") -> AnimationTrack:
+def empty_animation(j_pad: int, nm_pad: int, device="cuda") -> AnimationTrack:
     """A track with no keys: every bone and morph untracked."""
     interp = np.zeros((j_pad, 1, 4, 4), np.float32)
     interp[..., 0] = 20.0 / 127.0

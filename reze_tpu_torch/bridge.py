@@ -34,7 +34,7 @@ def _leaf(x, device):
     return x  # None or static metadata (ints, floats, tuples)
 
 
-def from_jax_arrays(tree, device="cpu"):
+def from_jax_arrays(tree, device="cuda"):
     """Tree of dataclasses with numpy (or tensor) leaves -> the port's
     dataclasses with tensors on ``device``. Integer leaves become int64,
     float leaves float32; static fields pass through unchanged."""

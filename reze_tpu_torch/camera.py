@@ -30,7 +30,7 @@ class Camera:
     lower_beta_limit: float = 0.001
     upper_beta_limit: float = np.pi - 0.001
 
-    def position(self, device=None) -> torch.Tensor:
+    def position(self, device="cuda") -> torch.Tensor:
         t = torch.tensor(self.target, dtype=torch.float32, device=device)
         sb, cb = np.sin(self.beta), np.cos(self.beta)
         sa, ca = np.sin(self.alpha), np.cos(self.alpha)
@@ -38,18 +38,18 @@ class Camera:
                               device=device)
         return t + self.radius * offset
 
-    def view_matrix(self, device=None) -> torch.Tensor:
+    def view_matrix(self, device="cuda") -> torch.Tensor:
         return m3.look_at_lh(
             self.position(device),
             torch.tensor(self.target, dtype=torch.float32, device=device),
             torch.tensor([0.0, 1.0, 0.0], device=device),
         )
 
-    def projection_matrix(self, device=None) -> torch.Tensor:
+    def projection_matrix(self, device="cuda") -> torch.Tensor:
         return m3.perspective_lh(self.fov, self.aspect, self.near, self.far,
                                  device=device)
 
-    def view_proj(self, device=None) -> torch.Tensor:
+    def view_proj(self, device="cuda") -> torch.Tensor:
         return self.projection_matrix(device) @ self.view_matrix(device)
 
     def orbit(self, dx: float, dy: float) -> "Camera":
@@ -63,7 +63,7 @@ class Camera:
         return dataclasses.replace(self, radius=radius)
 
     def pan(self, dx: float, dy: float) -> "Camera":
-        eye = self.position().numpy()
+        eye = self.position("cpu").numpy()
         fwd = np.asarray(self.target) - eye
         fl = np.linalg.norm(fwd)
         if fl < 1e-4:

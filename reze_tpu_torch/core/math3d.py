@@ -141,7 +141,7 @@ def mat4_inverse(m: Tensor) -> Tensor:
 
 
 def perspective_lh(fov: float, aspect: float, near: float, far: float,
-                   device=None) -> Tensor:
+                   device="cuda") -> Tensor:
     """Left-handed perspective, depth in [0 (near), 1 (far)]. The entries
     are rounded to float32 in the same order as the JAX version."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731

@@ -49,9 +49,10 @@ class ShadeTables(NamedTuple):
     atlas_stride: int
 
 
-def pack_shade_tables(materials, atlas, device=None) -> ShadeTables:
-    """Host side: dedupe material properties into small group tables."""
-    device = materials.alpha.device if device is None else device
+def pack_shade_tables(materials, atlas) -> ShadeTables:
+    """Host side: dedupe material properties into small group tables, on
+    the materials' device."""
+    device = materials.alpha.device
     host = lambda t: t.detach().cpu().numpy()  # noqa: E731
     m = materials.alpha.shape[0]
     lut = host(materials.toon_lut)

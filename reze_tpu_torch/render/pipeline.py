@@ -50,7 +50,7 @@ def _gather_pass(model: ModelArrays, pos: Tensor, nrm: Tensor, view_proj: Tensor
     return _PassData(clip, c_uv, c_nrm, c_pos, tri_mat, valid)
 
 
-def make_lights(cfg: EngineConfig, device="cpu") -> Lights:
+def make_lights(cfg: EngineConfig, device="cuda") -> Lights:
     direction = np.zeros((MAX_LIGHTS, 3), np.float32)
     color = np.zeros((MAX_LIGHTS, 3), np.float32)
     intensity = np.zeros(MAX_LIGHTS, np.float32)

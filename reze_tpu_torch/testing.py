@@ -18,7 +18,7 @@ from .core.build import build_mip_chain, build_quad_chain, build_quad_flat
 
 def make_test_model(n_bones: int = 8, j_pad: int = 8, v_pad: int = 64,
                     tex_hw: tuple[int, int] = (8, 8),
-                    device="cpu") -> T.ModelArrays:
+                    device="cuda") -> T.ModelArrays:
     j = j_pad
     parent = np.full(j, -1, np.int32)
     bind = np.zeros((j, 3), np.float32)
@@ -249,7 +249,7 @@ def random_pass_inputs(seed: int, n_tris: tuple[int, ...], n_groups: int = 3):
 
 
 def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
-                        device="cpu"):
+                        device="cuda"):
     """Frame-kernel tables (``frame_gpu.FrameTables``) for an
     (hp, wp) frame from :func:`random_pass_inputs`, packed with the
     engine's per-pass culling and pair capacity."""

@@ -62,16 +62,16 @@ def _port_shade(sh):
 
 @pytest.fixture(scope="module")
 def scene():
-    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP)
+    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP, device="cpu")
     sh = ptesting.random_shade_inputs(5)
     jlights = jpipe.make_lights(EngineConfig())
     return dict(ft=ft, sh=sh, jlights=jlights,
-                plights=bridge.from_jax_arrays(jax.device_get(jlights)))
+                plights=bridge.from_jax_arrays(jax.device_get(jlights), "cpu"))
 
 
 def frame_outputs(analytic, use_mips, lod_bias):
     """(JAX interpret-mode output, twin output) on the random tables."""
-    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP)
+    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP, device="cpu")
     sh = ptesting.random_shade_inputs(5)
     jlights = jpipe.make_lights(EngineConfig())
     jft, jsh = _jax_tables(ft, sh)
@@ -87,7 +87,7 @@ def frame_outputs(analytic, use_mips, lod_bias):
     o_ref = np.asarray(ref(jft, jsh.knot_tab, jsh.tex_tab, jsh.edge_tab, jlights,
                            jnp.asarray(sh["eye_pos"]), jnp.asarray(sh["inv_vp"])))
     o_port = FG.render_megakernel(
-        ft, _port_shade(sh), bridge.from_jax_arrays(jax.device_get(jlights)), RIM,
+        ft, _port_shade(sh), bridge.from_jax_arrays(jax.device_get(jlights), "cpu"), RIM,
         torch.as_tensor(sh["eye_pos"]), torch.as_tensor(sh["inv_vp"]), hp=HP, wp=WP,
         n_samples=n, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic).numpy()
     return o_ref, o_port
@@ -141,7 +141,7 @@ def test_frame_wrapper_uses_twin_on_cpu(scene):
 def test_lights_bridge_matches():
     """Lights reach the kernels identically through the bridge."""
     jl = jpipe.make_lights(EngineConfig())
-    pl = bridge.from_jax_arrays(jax.device_get(jl))
+    pl = bridge.from_jax_arrays(jax.device_get(jl), "cpu")
     assert isinstance(jl, Lights)
     for name in ("ambient", "direction", "color", "intensity", "count"):
         np.testing.assert_array_equal(getattr(pl, name).numpy(), np.asarray(getattr(jl, name)))

@@ -115,7 +115,7 @@ def test_gather_pass_matches(spec):
     inverted hull along the skinned normals."""
     cls, _, outline = SPECS[spec]
     jmodel = jtesting.make_test_model()
-    pmodel = ptesting.make_test_model()
+    pmodel = ptesting.make_test_model(device="cpu")
     rng = np.random.default_rng(12)
     v = jmodel.geometry.positions.shape[0]
     pos = (np.asarray(jmodel.geometry.positions)

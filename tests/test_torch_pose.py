@@ -53,7 +53,7 @@ def jmodel():
 
 @pytest.fixture(scope="module")
 def pmodel():
-    return ptesting.make_test_model()
+    return ptesting.make_test_model(device="cpu")
 
 
 def _leaves(tree, prefix=""):
@@ -67,7 +67,7 @@ def _leaves(tree, prefix=""):
 @pytest.mark.parametrize("tex_hw", [(8, 8), (16, 2)])
 def test_make_test_model_matches(tex_hw):
     ref = dict(_leaves(jax.device_get(jtesting.make_test_model(tex_hw=tex_hw))))
-    port = dict(_leaves(ptesting.make_test_model(tex_hw=tex_hw)))
+    port = dict(_leaves(ptesting.make_test_model(tex_hw=tex_hw, device="cpu")))
     assert ref.keys() == port.keys()
     for name, r in ref.items():
         p = port[name]
@@ -107,8 +107,8 @@ def test_math3d_matches(fn):
 def test_camera_matches():
     kw = dict(alpha=2.1, beta=1.1, radius=7.5, target=(0.3, 2.0, -0.4), aspect=16 / 9)
     jc, pc = jcam.Camera(**kw), pcam.Camera(**kw)
-    close(pc.position(), jc.position())
-    close(pc.view_proj(), jc.view_proj(), atol=1e-4)  # entries up to ~10
+    close(pc.position("cpu"), jc.position())
+    close(pc.view_proj("cpu"), jc.view_proj(), atol=1e-4)  # entries up to ~10
     assert pc.orbit(3, 2).alpha == jc.orbit(3, 2).alpha
     assert pc.zoom(40).radius == jc.zoom(40).radius
     np.testing.assert_allclose(pc.pan(5, 3).target, jc.pan(5, 3).target, atol=1e-6)
@@ -139,7 +139,7 @@ def _random_track(seed, j=6, k=5, nm=3, km=4):
 def test_sampler_matches(t, mode):
     track_np = _random_track(3)
     jtrack = jax.device_put(track_np)
-    ptrack = bridge.from_jax_arrays(track_np)
+    ptrack = bridge.from_jax_arrays(track_np, "cpu")
     jr, jp = jax.jit(jsampler.sample_bones, static_argnums=2)(jtrack, jnp.float32(t), mode)
     pr, pp = psampler.sample_bones(ptrack, torch.tensor(t), mode)
     close(pr, jr)
@@ -156,7 +156,7 @@ def test_sampler_matches(t, mode):
 
 def test_empty_animation_matches():
     ref = jax.device_get(jsampler.empty_animation(8, 2))
-    port = psampler.empty_animation(8, 2)
+    port = psampler.empty_animation(8, 2, "cpu")
     for name, r in _leaves(ref):
         p = dict(_leaves(port))[name]
         if isinstance(p, torch.Tensor):
@@ -174,7 +174,7 @@ def test_tweens_match():
     jstate = JT.TweenState(active=np.zeros(j, bool), start_quat=rand_quat(rng, j),
                            target_quat=rand_quat(rng, j), start_time=np.zeros(j, np.float32),
                            duration=np.ones(j, np.float32))
-    pstate = bridge.from_jax_arrays(jstate)
+    pstate = bridge.from_jax_arrays(jstate, "cpu")
     for dur in (0.0, 0.25):
         js, jrot = jtween.start_tweens(jax.device_put(jstate), jnp.asarray(rot),
                                        jnp.float32(0.1), jnp.asarray(mask),
@@ -222,7 +222,7 @@ def test_ik_matches(jmodel, pmodel, limits):
             link_has_limit=jnp.asarray([[True, False]]),
             link_limit_min=jnp.asarray([[[-0.5, 0.0, 0.0], [0.0, 0.0, 0.0]]]),
             link_limit_max=jnp.asarray([[[0.0, 0.3, 0.0], [0.0, 0.0, 0.0]]]))
-    pik_tab = bridge.from_jax_arrays(jax.device_get(jik_tab))
+    pik_tab = bridge.from_jax_arrays(jax.device_get(jik_tab), "cpu")
     ref = jax.jit(jik.solve_ik, static_argnums=())(jmodel.skeleton, jik_tab,
                                                    jnp.asarray(rot), jnp.asarray(trans))
     port = pik.solve_ik(pmodel.skeleton, pik_tab, tt(rot), tt(trans))
@@ -255,7 +255,7 @@ def test_skinning_matches(jmodel, pmodel, sdef):
         jax.device_put(geom), jax.device_put(skin), jnp.asarray(palette),
         morphs=jmodel.morphs, morph_weights=jnp.asarray(mw), world_quat_palette=jq)
     ppos, pnrm = pskin.skin_vertices(
-        bridge.from_jax_arrays(geom), bridge.from_jax_arrays(skin), tt(palette),
+        bridge.from_jax_arrays(geom, "cpu"), bridge.from_jax_arrays(skin, "cpu"), tt(palette),
         morphs=pmodel.morphs, morph_weights=tt(mw), world_quat_palette=tt(jq))
     close(ppos, jpos)
     close(pnrm, jnrm)

@@ -19,7 +19,10 @@ sample a gradient.
 """
 
 import dataclasses
+import importlib
+import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -61,7 +64,7 @@ def _tween_args(j):
 @pytest.fixture(scope="module")
 def runs():
     jmodel = jtesting.make_test_model(tex_hw=TEX_HW)
-    pmodel = ptesting.make_test_model(tex_hw=TEX_HW)
+    pmodel = ptesting.make_test_model(tex_hw=TEX_HW, device="cpu")
     jcfg = JT.EngineConfig(width=W, height=H, enable_physics=False, renderer="tpu")
     pcfg = PT.EngineConfig(width=W, height=H, enable_physics=False)
     cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
@@ -76,8 +79,8 @@ def runs():
     jargs = (jnp.asarray(vp), jnp.asarray(eye), jlights, jax.device_put(track),
              jax.device_put(breath))
     pargs = (torch.as_tensor(vp), torch.as_tensor(eye),
-             bridge.from_jax_arrays(jax.device_get(jlights)),
-             bridge.from_jax_arrays(track), bridge.from_jax_arrays(breath))
+             bridge.from_jax_arrays(jax.device_get(jlights), "cpu"),
+             bridge.from_jax_arrays(track, "cpu"), bridge.from_jax_arrays(breath, "cpu"))
     jstep = jax.jit(jmake_step(jmodel, jcfg))
     pstep = pmake_step(pmodel, pcfg)
     js, ps = JT.init_scene_state(jmodel), PT.init_scene_state(pmodel)
@@ -127,7 +130,7 @@ def test_morph_and_tween_change_the_frame(runs):
 
 
 def test_physics_refused():
-    model = ptesting.make_test_model()
+    model = ptesting.make_test_model(device="cpu")
     with pytest.raises(NotImplementedError, match="physics"):
         pmake_step(model, PT.EngineConfig(width=W, height=H))
 
@@ -139,7 +142,7 @@ def test_physics_refused():
 def test_unported_paths_refused(change):
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
     with pytest.raises(NotImplementedError):
-        pmake_step(ptesting.make_test_model(), cfg)
+        pmake_step(ptesting.make_test_model(device="cpu"), cfg)
 
 
 def test_mat_mod_matches():
@@ -174,3 +177,30 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Every public function or method of the port that takes ``device``
+    defaults to "cuda": a caller gets the CPU only by asking for it."""
+    import reze_tpu_torch
+
+    found = []
+    for info in pkgutil.walk_packages(reze_tpu_torch.__path__, "reze_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns = [(f"{name}.{k}", v) for k, v in vars(obj).items()
+                       if inspect.isfunction(v) and not k.startswith("_")]
+            for qual, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None:
+                    found.append(f"{mod.__name__}.{qual}")
+                    assert param.default == "cuda", (qual, param.default)
+    for name in ("testing.make_test_model", "testing.random_frame_tables",
+                 "anim.sampler.empty_animation", "bridge.from_jax_arrays",
+                 "render.pipeline.make_lights", "camera.Camera.view_proj",
+                 "camera.Camera.position"):
+        assert f"reze_tpu_torch.{name}" in found
