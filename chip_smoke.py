@@ -10,18 +10,28 @@ Phases, each printed on its own line:
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``reze_tpu_torch/kernels/csrc``
    and prints the time and each kernel's registers and spills;
-3. kernels against their plain torch twins on the card, on seeded random
-   triangles (16x256, both coverage modes) and on the 1920x1080 frame of
-   the main path, with the CPU tests' bounds;
-4. the main path: ``make_step`` with the default ``EngineConfig`` except
-   1920x1080 and physics off, on the synthetic model with the camera close
-   enough that its quads span the frame height, for 5 frames; checks
-   finite frames, covered fraction, no pair overflow and one launch of
-   each kernel per frame;
-5. timing: milliseconds per frame (host clock over state-carrying steps),
-   and each kernel next to its twin at the 1080p shapes (CUDA events);
-6. the same step at 256x128 on the GPU against the step on the CPU (where
-   the kernels' twins run).
+3. kernels against their plain torch twins on the card: the frame and
+   composite kernels on seeded random triangles (16x256, both coverage
+   modes) and on the 1920x1080 frame of the main path; the raster-pass and
+   stack-shade kernels on the seeded tables and stack of the CPU tests
+   (64x256) and on the 1080p frame's own seven pass tables and stack;
+4. the three render paths of ``make_step`` at 1920x1080, physics off, on
+   the synthetic model with the camera close enough that its quads span
+   the frame height, 5 frames each: the main path (default
+   ``EngineConfig``), the layered per-pass path (``use_megakernel=False``)
+   and the non-layered per-pass path (``layered_shading=False``). Each
+   checks finite frames, the covered fraction, no pair overflow and its
+   kernels' launches per frame (counts set to 0 just before the path and
+   read just after);
+5. timing: milliseconds per frame of each path (host clock over
+   state-carrying steps, the three paths twice in turns in one call), and
+   each kernel next to its twin at the 1080p shapes (CUDA events), with its
+   bound;
+6. each path's step at 256x128 on the GPU against the step on the CPU
+   (where the kernels' twins run);
+7. only with ``--profile``: each path's 1080p step under ``torch.profiler``
+   for 3 frames: device busy time, kernel launches and the largest host
+   and device items per frame.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -41,14 +51,29 @@ N_FRAMES = 5
 N_TIMED = 20
 W, H = 1920, 1080
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+# float operations per (pixel, pair) of a raster walk: three edge planes
+# and the depth plane (2 products + 2 sums each), then per sample three
+# edge offsets and the depth offset added and tested (8)
+PLANE_OPS = 16
+SAMPLE_OPS = 8
+# float operations of one pixel's toon/rim shade (shade.cuh::shade_pixel:
+# 4 lights x 9 knots x 3 channels of hat-basis sums dominate)
+SHADE_OPS = 400
+# float operations of one pixel of the composite (two layers' unpack and
+# blend, the bloom seed)
+COMPOSITE_OPS = 30
+
 
 def require(cond: bool, what) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
 
 
-def phase(name: str, **fields) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+def phase(tag: str, **fields) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -66,6 +91,17 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms on the card, what binds): the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> int:
     import torch
 
@@ -73,10 +109,41 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    return run(torch.device("cuda"), W, H)
+    return run(torch.device("cuda"), W, H, profile="--profile" in sys.argv[1:])
 
 
-def run(dev, W: int, H: int) -> int:
+def profile_step(step, state, args, n: int = 3) -> dict:
+    """Per-frame figures of ``n`` state-carrying steps under torch.profiler:
+    wall and device-busy ms, device kernels and cudaLaunchKernel calls, and
+    the largest host and device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = step(state, *args)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels themselves (the ops that launched them carry the same time)
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = lambda evs, key: [(e.key[:48], round(key(e) / n / 1e3, 3))  # noqa: E731
+                            for e in sorted(evs, key=key, reverse=True)[:6]]
+    return {"wall_ms": round(wall, 3),
+            "device_busy_ms": round(sum(dev_us(e) for e in device) / n / 1e3, 3),
+            "device_ops": sum(e.count for e in device) // n,
+            "launch_calls": sum(e.count for e in events if e.key == "cudaLaunchKernel") // n,
+            "top_device_ms": top(device, dev_us),
+            "top_host_ms": top(events, lambda e: e.self_cpu_time_total)}
+
+
+def run(dev, W: int, H: int, profile: bool = False) -> int:
     """All phases on ``dev`` with a ``W`` x ``H`` main-path frame."""
     import numpy as np
     import torch
@@ -89,6 +156,7 @@ def run(dev, W: int, H: int) -> int:
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import cuda_lib
     from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import raster_gpu as RG
     from reze_tpu_torch.kernels import shade_gpu as SG
     from reze_tpu_torch.render import pipeline, pipeline_gpu
     from reze_tpu_torch.step import make_step
@@ -113,7 +181,7 @@ def run(dev, W: int, H: int) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1], flush=True)
 
-    # 3a. kernels against their twins on random triangles
+    # 3a. frame kernel against its twin on random triangles
     sh = testing.random_shade_inputs(5)
     t = lambda k: torch.as_tensor(sh[k], device=dev)  # noqa: E731
     rtab = SG.ShadeTables(push_tab=torch.zeros((1, 7), device=dev), knot_tab=t("knot_tab"),
@@ -132,6 +200,54 @@ def run(dev, W: int, H: int) -> int:
               same_frac=res["same_frac"], max_abs_err=res["max_abs_err"])
         require(res["ok"], (name, res["same_frac"], res["max_abs_err"]))
 
+    # 3b. raster pass and stack shade against their twins on the CPU tests'
+    # seeded tables and stack, with the CPU tests' bounds (kernel and twin do
+    # the same float operations, so max_abs_err 0 and equal_frac 1 are
+    # expected and printed)
+    raster_err, shade_err = 0.0, 0.0
+
+    def check_raster(tabs, chain, s, hp, wp, label):
+        """Chain the passes through kernel and twin from fresh depth
+        buffers, with the CPU tests' bounds (material id and cover equal on
+        99.5 % of pixels, depths within 1e-6 on 99.5 % of samples); -> the
+        largest difference of any channel."""
+        zk = torch.ones((s, hp, wp), device=dev)
+        zt = torch.ones((s, hp, wp), device=dev)
+        worst = 0.0
+        for i, (tb, (dw, attrs)) in enumerate(zip(tabs, chain)):
+            zk, gk = RG.raster_pass(tb, zk, bx=wp // RG.TILE_W, depth_write=dw,
+                                    with_attrs=attrs)
+            zt, gt = RG.raster_pass_twin(tb, zt, bx=wp // RG.TILE_W, depth_write=dw,
+                                         with_attrs=attrs)
+            err = max((gk - gt).abs().max().item(), (zk - zt).abs().max().item())
+            equal = min((gk == gt).float().mean().item(), (zk == zt).float().mean().item())
+            fracs = [(gk[RG.CH_MAT] == gt[RG.CH_MAT]).float().mean().item(),
+                     (gk[RG.CH_COVER] == gt[RG.CH_COVER]).float().mean().item(),
+                     ((zk - zt).abs() <= 1e-6).float().mean().item()]
+            phase("check", kernel="raster_pass", tables=f"{label}_pass{i}", samples=s,
+                  max_abs_err=err, equal_frac=equal, mat_cover_z_fracs=fracs,
+                  drawn=(gk[RG.CH_MAT] >= 0).float().mean().item())
+            require(min(fracs) >= testing.SAME_FRAC, (label, i, fracs))
+            worst = max(worst, err)
+        return worst
+
+    rtabs = testing.random_raster_tables(11, (300, 300), 64, 256, device=dev)
+    for s, chain in ((4, ((True, True), (False, False))), (1, ((True, False), (False, True)))):
+        raster_err = max(raster_err, check_raster(rtabs, chain, s, 64, 256, "random_64x256"))
+    stack_r = testing.random_stack(7, 64, 256, empty_tiles=((0, 0), (1, 1)), device=dev)
+    for mips in (True, False):
+        skw = dict(use_mips=mips, lod_bias=(1.0, 0.0))
+        got = SG.shade_stack(stack_r, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"), **skw)
+        want = SG.shade_stack_twin(stack_r, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"),
+                                   **skw)
+        err = (got - want).abs().max().item()
+        res = testing.compare_shade(got.cpu(), want.cpu())
+        phase("check", kernel="shade_stack", tables=f"random_64x256_mips{int(mips)}",
+              max_abs_err=err, equal_frac=(got == want).float().mean().item(),
+              same_frac=res["same_frac"])
+        require(res["ok"], ("random stack", mips, err, res["same_frac"]))
+        shade_err = max(shade_err, err)
+
     # the main path's model, camera and inputs
     cfg = EngineConfig(width=W, height=H, enable_physics=False)
     model = testing.make_test_model(device=dev)
@@ -148,9 +264,12 @@ def run(dev, W: int, H: int) -> int:
     track = sampler.empty_animation(j, nm, dev)
     vp, eye = cam.view_proj(dev), cam.position(dev)
     dt = torch.tensor(1 / 60, device=dev)
-    step = make_step(model, cfg)
+    paths = {"main": cfg, "layered": dataclasses.replace(cfg, use_megakernel=False),
+             "per_pass": dataclasses.replace(cfg, layered_shading=False)}
+    steps = {name: make_step(model, c) for name, c in paths.items()}
+    step = steps["main"]
 
-    # 3b. kernels against their twins on the 1080p frame's own tables
+    # 3c. every kernel against its twin on the 1080p frame's own inputs
     dims = pipeline_gpu.make_dims_fast(cfg)
     state0 = init_scene_state(model)
     sim = step.simulate(state0, dt, track, breath)
@@ -165,7 +284,7 @@ def run(dev, W: int, H: int) -> int:
     o_k = FG.render_megakernel(*fargs, **fkw)
     o_t = FG.render_megakernel_twin(*fargs, **fkw)
     res = testing.compare_shade(o_k.cpu(), o_t.cpu())
-    phase("check", kernel="frame", tables="main_path_1920x1080",
+    phase("check", kernel="frame", tables=f"main_path_{W}x{H}",
           same_frac=res["same_frac"], max_abs_err=res["max_abs_err"])
     require(res["ok"], ("main path tables", res["same_frac"], res["max_abs_err"]))
     frame_err = res["max_abs_err"]
@@ -175,95 +294,194 @@ def run(dev, W: int, H: int) -> int:
     img_k, seed_k = CG.composite(o_t, atlas, **ckw)
     img_t, seed_t = CG.composite_twin(o_t, atlas, **ckw)
     comp_err = max((img_k - img_t).abs().max().item(), (seed_k - seed_t).abs().max().item())
-    phase("check", kernel="composite", tables="main_path_1920x1080", max_abs_err=comp_err)
+    phase("check", kernel="composite", tables=f"main_path_{W}x{H}", max_abs_err=comp_err)
     require(comp_err <= 1e-6, comp_err)
 
-    # 4. the main path
-    FG.render_megakernel.launches = 0
-    CG.composite.launches = 0
-    state = init_scene_state(model)
+    ptabs = [pipeline_gpu.pass_tables(model, cfg, dims, pos, nrm, vp, None, p)
+             for p in range(FG.N_PASSES)]
+    pchain = [(cfg_p[1], not cfg_p[0]) for cfg_p in FG.PASS_CFG]  # (depth_write, attrs)
+    raster_err = max(raster_err, check_raster(ptabs, pchain, cfg.msaa_samples, dims.hp,
+                                              dims.wp, f"main_path_{W}x{H}"))
+    stack, _ = pipeline_gpu.layered_stack(model, cfg, dims, tables, pos, nrm, vp)
+    sargs = (stack, tables, lights, cfg.rim_light_intensity, eye, inv_vp)
+    skw = dict(use_mips=use_mips, lod_bias=lod_bias)
+    s_k = SG.shade_stack(*sargs, **skw)
+    s_t = SG.shade_stack_twin(*sargs, **skw)
+    err = (s_k - s_t).abs().max().item()
+    res = testing.compare_shade(s_k.cpu(), s_t.cpu())
+    phase("check", kernel="shade_stack", tables=f"main_path_{W}x{H}", max_abs_err=err,
+          equal_frac=(s_k == s_t).float().mean().item(), same_frac=res["same_frac"])
+    require(res["ok"], ("main path stack", err, res["same_frac"]))
+    shade_err = max(shade_err, err)
+
+    # 4. the three paths, 5 frames each, counts set to 0 just before each
+    counters = {"frame": FG.render_megakernel, "composite": CG.composite,
+                "raster_pass": RG.raster_pass, "shade_stack": SG.shade_stack}
+    expected = {"main": {"frame": 1, "composite": 1, "raster_pass": 0, "shade_stack": 0},
+                "layered": {"frame": 0, "composite": 1, "raster_pass": 7, "shade_stack": 1},
+                "per_pass": {"frame": 0, "composite": 0, "raster_pass": 7, "shade_stack": 0}}
     mask = torch.zeros(j, dtype=torch.bool, device=dev)
     mask[2] = True
     target = torch.zeros((j, 4), device=dev)
     target[:, 3] = 1.0
     target[2] = torch.tensor([0.0, 0.0, np.sin(0.15), np.cos(0.15)], device=dev)
-    frames, overflow = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in range(N_FRAMES):
-        if f == 1:  # start a bone tween: the later frames move
-            tw, rot = tween.start_tweens(state.tween, state.local_rot, state.time, mask,
-                                         target, torch.tensor(0.05, device=dev))
-            state = dataclasses.replace(state, tween=tw, local_rot=rot)
-        state, frame = step(state, dt, vp, eye, lights, track, breath)
-        frames.append(frame)
-        overflow.append(state.diag.pair_overflow)
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {"frame": FG.render_megakernel.launches, "composite": CG.composite.launches}
-    covered = [float((fr.sum(-1) > 0.01).float().mean()) for fr in frames]
-    phase("main_path", frames=N_FRAMES, shape=tuple(frames[0].shape),
-          covered=[round(c, 4) for c in covered],
-          pair_overflow=[int(o) for o in overflow], launches=launches,
-          seconds=f"{main_s:.3f}")
-    require(all(tuple(fr.shape) == (H, W, 3) for fr in frames), "frame shape")
-    require(all(bool(torch.isfinite(fr).all()) for fr in frames), "finite frames")
-    require(min(covered) > 0.05, f"covered fraction {covered}")
-    require(all(int(o) == 0 for o in overflow), f"pair overflow {overflow}")
-    require(launches == {"frame": N_FRAMES, "composite": N_FRAMES},
-            f"one launch of each kernel per frame: {launches}")
-    require((frames[-1] - frames[0]).abs().max().item() > 0.05, "the tween moves the pose")
+    launches, states = {}, {}
+    for name in paths:
+        state = init_scene_state(model)
+        frames, overflow = [], []
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(N_FRAMES):
+            if f == 1:  # start a bone tween: the later frames move
+                tw, rot = tween.start_tweens(state.tween, state.local_rot, state.time, mask,
+                                             target, torch.tensor(0.05, device=dev))
+                state = dataclasses.replace(state, tween=tw, local_rot=rot)
+            state, frame = steps[name](state, dt, vp, eye, lights, track, breath)
+            frames.append(frame)
+            overflow.append(state.diag.pair_overflow)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        states[name] = state
+        covered = [float((fr.sum(-1) > 0.01).float().mean()) for fr in frames]
+        phase("path", name=name, frames=N_FRAMES, shape=tuple(frames[0].shape),
+              covered=[round(c, 4) for c in covered],
+              pair_overflow=[int(o) for o in overflow], launches=launches[name],
+              seconds=f"{seconds:.3f}")
+        require(all(tuple(fr.shape) == (H, W, 3) for fr in frames), (name, "frame shape"))
+        require(all(bool(torch.isfinite(fr).all()) for fr in frames), (name, "finite"))
+        require(min(covered) > 0.05, (name, f"covered fraction {covered}"))
+        require(all(int(o) == 0 for o in overflow), (name, f"pair overflow {overflow}"))
+        want = {k: n * N_FRAMES for k, n in expected[name].items()}
+        require(launches[name] == want, (name, "launches", launches[name], want))
+        require((frames[-1] - frames[0]).abs().max().item() > 0.05,
+                (name, "the tween moves the pose"))
 
-    # 5. timing: host clock over state-carrying steps (the step is host-bound),
-    # CUDA events for the kernels and their twins
-    for _ in range(3):
-        state, _ = step(state, dt, vp, eye, lights, track, breath)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N_TIMED):
-        state, _ = step(state, dt, vp, eye, lights, track, breath)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) / N_TIMED * 1e3
+    # 5. timing: host clock over state-carrying steps (the step is
+    # host-bound), the paths in turns in this one call; CUDA events for the
+    # kernels and their twins
+    frame_ms = {name: [] for name in paths}
+    for name in list(paths) + list(paths)[::-1]:  # in turns: a, b, c, c, b, a
+        state = states[name]
+        for _ in range(3):
+            state, _ = steps[name](state, dt, vp, eye, lights, track, breath)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            state, _ = steps[name](state, dt, vp, eye, lights, track, breath)
+        torch.cuda.synchronize()
+        frame_ms[name].append((time.perf_counter() - t0) / N_TIMED * 1e3)
     t_t0 = cuda_ms(lambda: FG.render_megakernel_twin(*fargs, **fkw), 3)
     t_k = cuda_ms(lambda: FG.render_megakernel(*fargs, **fkw), 20)
     t_t = (t_t0 + cuda_ms(lambda: FG.render_megakernel_twin(*fargs, **fkw), 3)) / 2
     c_t0 = cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)
     c_k = cuda_ms(lambda: CG.composite(o_t, atlas, **ckw), 50)
     c_t = (c_t0 + cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)) / 2
-    phase("timing", ms_per_frame=f"{frame_ms:.3f}", frame_kernel_ms=f"{t_k:.3f}",
-          frame_twin_ms=f"{t_t:.3f}", composite_ms=f"{c_k:.4f}",
-          composite_twin_ms=f"{c_t:.4f}", card=smi)
+    zbuf = torch.ones((cfg.msaa_samples, dims.hp, dims.wp), device=dev)
 
-    # 6. the same step at a small size on the GPU against the CPU (the twins)
-    small = EngineConfig(width=256, height=128, enable_physics=False)
+    def raster_chain(fn):
+        for tb, (dw, attrs) in zip(ptabs, pchain):
+            fn(tb, zbuf, bx=dims.bx, depth_write=dw, with_attrs=attrs)
+
+    r_t0 = cuda_ms(lambda: raster_chain(RG.raster_pass_twin), 1) / FG.N_PASSES
+    r_k = cuda_ms(lambda: raster_chain(RG.raster_pass), 20) / FG.N_PASSES
+    r_t = (r_t0 + cuda_ms(lambda: raster_chain(RG.raster_pass_twin), 1) / FG.N_PASSES) / 2
+    sh_t0 = cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)
+    sh_k = cuda_ms(lambda: SG.shade_stack(*sargs, **skw), 50)
+    sh_t = (sh_t0 + cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)) / 2
+    phase("timing", card=smi, **{f"ms_per_frame_{k}": "/".join(f"{x:.3f}" for x in v)
+                                 for k, v in frame_ms.items()})
+    phase("timing", frame_kernel_ms=f"{t_k:.4f}", frame_twin_ms=f"{t_t:.3f}",
+          composite_ms=f"{c_k:.4f}", composite_twin_ms=f"{c_t:.4f}",
+          raster_pass_ms=f"{r_k:.4f}", raster_pass_twin_ms=f"{r_t:.3f}",
+          shade_stack_ms=f"{sh_k:.4f}", shade_stack_twin_ms=f"{sh_t:.3f}")
+
+    # bounds from this run's inputs: bytes each input read once and each
+    # output written once; operations counted from the pairs these tables hold
+    p = dims.hp * dims.wp
+    s = cfg.msaa_samples
+    walk_ops = PLANE_OPS + SAMPLE_OPS * s
+    frame_pairs = int(ft.counts.sum())
+    b_frame = bound(nbytes(ft.rows, ft.starts, ft.counts, *tables[1:4], o_k),
+                    frame_pairs * FG.TILE_H * FG.TILE_W * walk_ops + 2 * p * SHADE_OPS)
+    b_comp = bound(nbytes(o_t, atlas, img_k, seed_k), p * COMPOSITE_OPS)
+    rb_bytes, rb_ops = 0, 0
+    y0 = (torch.arange(dims.b, device=dev) // dims.bx * RG.TILE_H).float()
+    for tb, (dw, _) in zip(ptabs, pchain):
+        # tables and depths in, depths out where written, the G-buffer out
+        rb_bytes += (nbytes(tb.tab, tb.ids, tb.starts, tb.counts, zbuf)
+                     + (nbytes(zbuf) if dw else 0) + RG.N_CH * p * 4)
+        # the 8-row bands each pair's y range touches in its tile
+        tile_of = torch.repeat_interleave(torch.arange(dims.b, device=dev),
+                                          tb.counts.long())
+        rows = tb.tab[tb.ids[:tile_of.numel()].long()]
+        b0, b1 = RG._band_range(rows[:, RG.C_YMIN], rows[:, RG.C_YMAX], y0[tile_of])
+        rb_ops += int((b1 - b0 + 1).sum()) * RG.BAND_H * RG.TILE_W * walk_ops
+    b_raster = bound(rb_bytes / FG.N_PASSES, rb_ops / FG.N_PASSES)
+    shaded_px = sum(int((stack[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
+        dims.by, RG.TILE_H, dims.bx, RG.TILE_W).any(3).any(1).sum()) for layer in range(2))
+    b_shade = bound(nbytes(stack, *tables[1:4], s_k),
+                    shaded_px * RG.TILE_H * RG.TILE_W * SHADE_OPS)
+    phase("bounds", **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
+        ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
+        ("shade_stack", b_shade))})
+
+    # 6. each path's step at a small size on the GPU against the CPU (twins)
     scam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
                   aspect=2.0)
-    out = {}
-    for d in ("cpu", dev):
-        # two texel columns keep the quads' u seam, where coplanar depth
-        # ties decide the texel, out of the comparison
-        m = testing.make_test_model(tex_hw=(16, 2), device=d)
-        b = {k: v.to(d) for k, v in breath.items()}
-        s, fr = make_step(m, small)(init_scene_state(m), torch.tensor(1 / 60, device=d),
-                                    scam.view_proj(d), scam.position(d),
-                                    pipeline.make_lights(small, d),
-                                    sampler.empty_animation(j, nm, d), b)
-        out[d] = fr.cpu().numpy()
-    diff = np.abs(out["cpu"] - out[dev]).max(-1)
-    phase("check", step="256x128_gpu_vs_cpu", within_1_255=float((diff <= 1 / 255).mean()),
-          max_abs_err=float(diff.max()))
-    require((diff <= 1 / 255).mean() >= 0.99, "256x128 frame on the GPU vs the CPU")
+    for name, big in paths.items():
+        small = dataclasses.replace(big, width=256, height=128)
+        out = {}
+        for d in ("cpu", dev):
+            # two texel columns keep the quads' u seam, where coplanar depth
+            # ties decide the texel, out of the comparison
+            m = testing.make_test_model(tex_hw=(16, 2), device=d)
+            b = {k: v.to(d) for k, v in breath.items()}
+            _, fr = make_step(m, small)(init_scene_state(m), torch.tensor(1 / 60, device=d),
+                                        scam.view_proj(d), scam.position(d),
+                                        pipeline.make_lights(small, d),
+                                        sampler.empty_animation(j, nm, d), b)
+            out[d] = fr.cpu().numpy()
+        diff = np.abs(out["cpu"] - out[dev]).max(-1)
+        phase("check", step=f"256x128_gpu_vs_cpu_{name}",
+              within_1_255=float((diff <= 1 / 255).mean()), max_abs_err=float(diff.max()))
+        require((diff <= 1 / 255).mean() >= 0.99, (name, "256x128 frame, GPU vs CPU"))
 
+    # 7. (optional) where each path's frame time goes
+    if profile:
+        for name in paths:
+            phase("profile", name=name, card=smi,
+                  **profile_step(steps[name], states[name],
+                                 (dt, vp, eye, lights, track, breath)))
+
+    # library_ms: no single PyTorch call computes any of these functions
     kernels = [
         {"name": "frame_megakernel", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/frame.cu",
-         "replaces": "reze_tpu/kernels/frame_tpu.py:678", "launches": launches["frame"],
-         "max_abs_err": frame_err, "ms": t_k, "plain_ms": t_t},
+         "replaces": "reze_tpu/kernels/frame_tpu.py:678",
+         "launches": launches["main"]["frame"], "max_abs_err": frame_err, "ms": t_k,
+         "plain_ms": t_t, "bound_ms": b_frame[0], "bound_by": b_frame[1],
+         "library_ms": None},
         {"name": "composite", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/composite.cu",
          "replaces": "reze_tpu/kernels/composite_tpu.py:110",
-         "launches": launches["composite"], "max_abs_err": comp_err, "ms": c_k,
-         "plain_ms": c_t},
+         "launches": launches["main"]["composite"], "max_abs_err": comp_err, "ms": c_k,
+         "plain_ms": c_t, "bound_ms": b_comp[0], "bound_by": b_comp[1],
+         "library_ms": None},
+        {"name": "raster_pass", "route": "cuda",
+         "source": "reze_tpu_torch/kernels/csrc/raster.cu",
+         "replaces": "reze_tpu/kernels/raster_tpu.py:316",
+         "launches": launches["layered"]["raster_pass"], "max_abs_err": raster_err,
+         "ms": r_k, "plain_ms": r_t, "bound_ms": b_raster[0], "bound_by": b_raster[1],
+         "library_ms": None},
+        {"name": "shade_stack", "route": "cuda",
+         "source": "reze_tpu_torch/kernels/csrc/shade_stack.cu",
+         "replaces": "reze_tpu/kernels/shade_tpu.py:331",
+         "launches": launches["layered"]["shade_stack"], "max_abs_err": shade_err,
+         "ms": sh_k, "plain_ms": sh_t, "bound_ms": b_shade[0], "bound_by": b_shade[1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles every ``.cu`` file under ``csrc/`` into one
-shared library with a plain C interface for ``sm_90a``, in
-``<checkout>/build/kernels-<hash of the sources and flags>/``, and loads it
+At first use ``nvcc`` compiles every ``.cu`` file under ``csrc/`` for
+``sm_90a`` (one compiler process per file, all started together) and
+links the objects into one shared library with a plain C interface, in
+``<checkout>/build/kernels-<hash of the sources and flags>/``, loaded
 with ctypes. A later call in any process finds the library by its hash and
 only loads it. Nothing here runs at import time.
 
@@ -25,7 +26,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,14 @@ SIGNATURES = {
     "reze_composite": [_P, _P, _L, _P, _P,  # o, atlas, n_texels, img, half
                        _I, _I, _I, _I, _I,  # hp, wp, half0, half1, with_bloom
                        _P],  # stream
+    "reze_raster": [_P, _P, _I, _P, _P,  # tab, ids, n_ids, starts, counts
+                    _P, _P, _I, _I,  # zbuf (in place), gbuf, hp, wp
+                    _I, _I, _I, _P],  # n_samples, depth_write, with_attrs, stream
+    "reze_shade_stack": [_P,  # stack
+                         _P, _I, _P, _I, _I, _P, _I,  # knot, kr, tex, kt, tex_cols, edge, ke
+                         _P, _P, _P, _P,  # ldir, lcol, misc, inv_vp
+                         _P, _I, _I, _I,  # out, hp, wp, n_levels
+                         _P],  # stream
 }
 
 _lib = None
@@ -71,16 +80,31 @@ def library() -> ctypes.CDLL:
     so = out_dir / "libreze_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"tmp-{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sources if p.suffix == ".cu"]]
+        tag = f"tmp-{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in (p for p in sources if p.suffix == ".cu"):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+        build_log = "".join(log for log, _ in logs)
+        if any(rc != 0 for _, rc in logs):
+            build_seconds = time.perf_counter() - t0
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        tmp = out_dir / f"{tag}.so"
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
+        build_log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -200,24 +200,6 @@ def pack_frame_rows(parts, by: int, bx: int) -> FrameTables:
 # ---------------------------------------------------------------------------
 
 
-def _shade_inputs(shade_tables: SG.ShadeTables, lights, rim_intensity: float,
-                  eye_pos: Tensor, lod_bias) -> tuple[Tensor, Tensor]:
-    """-> (lcol (4, 3), misc (8,)): misc = [ambient, rim, eye xyz, atlas
-    stride, lod bias layer 0, lod bias layer 1]."""
-    dev = eye_pos.device
-    active = (torch.arange(4, device=dev) < lights.count).to(torch.float32)[:, None]
-    lcol = lights.color * lights.intensity[:, None] * active
-    misc = torch.stack([
-        lights.ambient.to(torch.float32).reshape(()),
-        torch.tensor(rim_intensity, dtype=torch.float32, device=dev),
-        eye_pos[0], eye_pos[1], eye_pos[2],
-        torch.tensor(float(shade_tables.atlas_stride), device=dev),
-        torch.tensor(float(lod_bias[0]), device=dev),
-        torch.tensor(float(lod_bias[1]), device=dev),
-    ])
-    return lcol.contiguous(), misc.contiguous()
-
-
 def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
                       rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
                       hp: int, wp: int, n_samples: int, use_mips: bool = False,
@@ -239,26 +221,16 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
         raise ValueError(f"bad frame shape/samples: {hp}x{wp}, {n_samples}")
     b_total = (hp // TILE_H) * (wp // TILE_W)
     dev = tables.rows.device
-    lcol, misc = _shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    f32_args = {
-        "rows": tables.rows, "knot_tab": shade_tables.knot_tab,
-        "tex_tab": shade_tables.tex_tab, "edge_tab": shade_tables.edge_tab,
-        "ldir": lights.direction, "lcol": lcol, "misc": misc, "inv_vp": inv_vp,
-    }
-    for name, t in f32_args.items():
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}")
-    if tables.rows.shape[1] != ROW_W:
-        raise ValueError(f"rows: need width {ROW_W}, got {tuple(tables.rows.shape)}")
+    lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    if (tables.rows.dtype != torch.float32 or not tables.rows.is_contiguous()
+            or tables.rows.shape[1] != ROW_W):
+        raise ValueError(f"rows: need a contiguous float32 (N, {ROW_W}) tensor, got "
+                         f"{tables.rows.dtype} {tuple(tables.rows.shape)}")
+    SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
     for name, t in (("starts", tables.starts), ("counts", tables.counts)):
         if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
                 or tuple(t.shape) != (N_PASSES, b_total)):
             raise ValueError(f"{name}: need contiguous int32 ({N_PASSES}, {b_total}) on {dev}")
-    if tuple(inv_vp.shape) != (4, 4) or tuple(lights.direction.shape) != (4, 3):
-        raise ValueError("inv_vp must be (4, 4) and light directions (4, 3)")
-    if (shade_tables.knot_tab.shape[1] != 3 * SG.N_KNOTS or shade_tables.edge_tab.shape[1] != 3
-            or shade_tables.tex_tab.shape[1] < 4):
-        raise ValueError("shade tables: need knot (Kr, 27), edge (Ke, 3), tex (Kt, >= 4)")
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
     out = torch.empty((2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
@@ -300,7 +272,7 @@ def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, li
     b_total = by * bx
     dev = tables.rows.device
     f32 = torch.float32
-    lcol, misc = _shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
     tile = torch.arange(b_total, device=dev)
     x0f = ((tile % bx) * TILE_W).to(f32)[:, None]  # (B, 1)
     y0f = ((tile // bx) * TILE_H).to(f32)[:, None]
@@ -427,15 +399,6 @@ def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, li
     xs = xs.expand(b_total, TILE_H, TILE_W)
     ys = ys.expand(b_total, TILE_H, TILE_W)
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
-    out = []
-    for layer in range(2):
-        stk = stack[layer * SG.L_CH:(layer + 1) * SG.L_CH]
-        shaded = SG.shade_layer(stk, shade_tables.knot_tab, shade_tables.tex_tab,
-                                shade_tables.edge_tab, lights.direction, lcol, misc,
-                                inv_vp, xs, ys, wp, hp, n_levels, layer)
-        present = (stk[SG.L_AEFF] > 0.0).flatten(1).any(1)[:, None, None]
-        for ch, v in enumerate(shaded):
-            empty = -1.0 if ch == SG.O_TEX else 0.0
-            out.append(torch.where(present, v, empty))
-        out.append(stk[SG.L_AEFF])
+    out = SG.shade_tiles(stack, shade_tables, lights, lcol, misc, inv_vp, xs, ys, wp, hp,
+                         n_levels)
     return _tiles_to_frame(torch.stack(out), by, bx)

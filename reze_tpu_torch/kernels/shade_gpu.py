@@ -1,15 +1,19 @@
 """Toon/rim shading of the two-layer fragment stack: host-side material
-tables and the plain torch shade (counterpart of ``reze_tpu/kernels/
-shade_tpu.py``). The CUDA version of the same math is inlined in the frame
-kernel (``csrc/shade.cuh``); this module's :func:`shade_layer` is its
-twin, used by ``frame_gpu``'s plain version.
+tables, the plain torch shade, and the standalone stack-shade kernel
+(counterpart of ``reze_tpu/kernels/shade_tpu.py``).
+
+The CUDA form of the per-pixel math is ``csrc/shade.cuh::shade_pixel``.
+The frame kernel inlines it on 8x128 tiles; :func:`shade_stack` launches
+``csrc/shade_stack.cu``, which applies it to a planar (24, hp, wp) stack
+on 32x128 tiles. :func:`shade_layer` is the twin of both.
 
 Per pixel: divide the attributes by 1/w, normalize the normal, pick a mip
-level from screen-space uv differences (taken inside each 8x128 tile, with
+level from screen-space uv differences (taken inside each tile, with
 wrap-around at the tile edges), emit the texel index and its bilinear
 footprint, evaluate the 9-knot toon ramp over four lights plus ambient,
 rebuild the world position from depth for the rim term, and give outline
-fragments their flat edge colour.
+fragments their flat edge colour. A layer with no fragment in a tile
+writes texel index -1 and zeros there; ``a_eff`` is always copied.
 """
 
 from __future__ import annotations
@@ -19,7 +23,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import cuda_lib
+
 Tensor = torch.Tensor
+
+# the standalone stack shade works on 32x128 tiles
+STACK_TILE_H = 32
+STACK_TILE_W = 128
 
 N_KNOTS = 9
 
@@ -124,8 +134,9 @@ def shade_layer(stk: list[Tensor], knot_tab: Tensor, tex_tab: Tensor,
                 inv_vp: Tensor, xs: Tensor, ys: Tensor, wp: int, hp: int,
                 n_levels: int, layer: int) -> list[Tensor]:
     """Shade one layer of the stack. ``stk``: the L_CH channels, each
-    (B, 8, 128) tiles; ``xs``/``ys``: pixel centres in frame coordinates,
-    same shape. -> the 8 channels O_LR..O_FY in order."""
+    (B, th, tw) tiles (8x128 in the frame kernel, 32x128 in the stack
+    shade); ``xs``/``ys``: pixel centres in frame coordinates, same shape.
+    -> the 8 channels O_LR..O_FY in order."""
     mat_present = stk[L_AEFF] > 0.0
     iw = torch.clamp(stk[L_IW], min=1e-8)
     inv_iw = 1.0 / iw
@@ -207,3 +218,120 @@ def shade_layer(stk: list[Tensor], knot_tab: Tensor, tex_tab: Tensor,
     no_tex = outline | ~mat_present | (tex_ok <= 0.5)
     texsel = torch.where(no_tex, torch.full_like(u, -1.0), texidx)
     return [lit[0], lit[1], lit[2], rim, texsel, dx + 2.0 * dy, fx, fy]
+
+
+def shade_inputs(shade_tables: ShadeTables, lights, rim_intensity: float,
+                 eye_pos: Tensor, lod_bias) -> tuple[Tensor, Tensor]:
+    """-> (lcol (4, 3), misc (8,)): misc = [ambient, rim, eye xyz, atlas
+    stride, lod bias layer 0, lod bias layer 1]."""
+    dev = eye_pos.device
+    active = (torch.arange(4, device=dev) < lights.count).to(torch.float32)[:, None]
+    lcol = lights.color * lights.intensity[:, None] * active
+    misc = torch.stack([
+        lights.ambient.to(torch.float32).reshape(()),
+        torch.tensor(rim_intensity, dtype=torch.float32, device=dev),
+        eye_pos[0], eye_pos[1], eye_pos[2],
+        torch.tensor(float(shade_tables.atlas_stride), device=dev),
+        torch.tensor(float(lod_bias[0]), device=dev),
+        torch.tensor(float(lod_bias[1]), device=dev),
+    ])
+    return lcol.contiguous(), misc.contiguous()
+
+
+def shade_tiles(stack: list[Tensor], shade_tables: ShadeTables, lights, lcol: Tensor,
+                misc: Tensor, inv_vp: Tensor, xs: Tensor, ys: Tensor, wp: int, hp: int,
+                n_levels: int) -> list[Tensor]:
+    """Shade both layers of a tiled stack (2*L_CH channels, each (B, th,
+    tw)) -> the 2*O_CH output channels, with the per-tile skip of an empty
+    layer."""
+    out = []
+    for layer in range(2):
+        stk = stack[layer * L_CH:(layer + 1) * L_CH]
+        shaded = shade_layer(stk, shade_tables.knot_tab, shade_tables.tex_tab,
+                             shade_tables.edge_tab, lights.direction, lcol, misc,
+                             inv_vp, xs, ys, wp, hp, n_levels, layer)
+        present = (stk[L_AEFF] > 0.0).flatten(1).any(1)[:, None, None]
+        for ch, v in enumerate(shaded):
+            empty = -1.0 if ch == O_TEX else 0.0
+            out.append(torch.where(present, v, empty))
+        out.append(stk[L_AEFF])
+    return out
+
+
+def check_shade_args(shade_tables: ShadeTables, lights, lcol: Tensor, misc: Tensor,
+                     inv_vp: Tensor, dev) -> None:
+    """Raise unless the shade inputs are what the CUDA kernels take."""
+    f32_args = {"knot_tab": shade_tables.knot_tab, "tex_tab": shade_tables.tex_tab,
+                "edge_tab": shade_tables.edge_tab, "ldir": lights.direction,
+                "lcol": lcol, "misc": misc, "inv_vp": inv_vp}
+    for name, t in f32_args.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}")
+    if tuple(inv_vp.shape) != (4, 4) or tuple(lights.direction.shape) != (4, 3):
+        raise ValueError("inv_vp must be (4, 4) and light directions (4, 3)")
+    if (shade_tables.knot_tab.shape[1] != 3 * N_KNOTS or shade_tables.edge_tab.shape[1] != 3
+            or shade_tables.tex_tab.shape[1] < 4):
+        raise ValueError("shade tables: need knot (Kr, 27), edge (Ke, 3), tex (Kt, >= 4)")
+
+
+def shade_stack(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity: float,
+                eye_pos: Tensor, inv_vp: Tensor, *, use_mips: bool = False,
+                lod_bias: tuple[float, float] = (0.0, 0.0)) -> Tensor:
+    """Planar stack (2*L_CH, hp, wp) -> shade outputs (2*O_CH, hp, wp).
+
+    With ``use_mips`` texel indices address the dense mip chain at a
+    per-pixel LOD, plus ``lod_bias`` per layer. CUDA tensors launch
+    ``csrc/shade_stack.cu``; CPU tensors run :func:`shade_stack_twin`."""
+    if not stack.is_cuda:
+        return shade_stack_twin(stack, shade_tables, lights, rim_intensity, eye_pos,
+                                inv_vp, use_mips=use_mips, lod_bias=lod_bias)
+    dev = stack.device
+    hp, wp = stack.shape[-2:]
+    if (stack.dtype != torch.float32 or not stack.is_contiguous()
+            or tuple(stack.shape) != (2 * L_CH, hp, wp)
+            or hp % STACK_TILE_H or wp % STACK_TILE_W):
+        raise ValueError(f"stack: need a contiguous float32 ({2 * L_CH}, hp, wp) of whole "
+                         f"32x128 tiles, got {stack.dtype} {tuple(stack.shape)}")
+    lcol, misc = shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    out = torch.empty((2 * O_CH, hp, wp), dtype=torch.float32, device=dev)
+    err = cuda_lib.library().reze_shade_stack(
+        stack.data_ptr(), shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
+        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
+        shade_tables.tex_tab.shape[1], shade_tables.edge_tab.data_ptr(),
+        shade_tables.edge_tab.shape[0], lights.direction.data_ptr(), lcol.data_ptr(),
+        misc.data_ptr(), inv_vp.data_ptr(), out.data_ptr(), hp, wp, n_levels,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "reze_shade_stack")
+    shade_stack.launches += 1
+    return out
+
+
+shade_stack.launches = 0
+
+
+def shade_stack_twin(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity: float,
+                     eye_pos: Tensor, inv_vp: Tensor, *, use_mips: bool = False,
+                     lod_bias: tuple[float, float] = (0.0, 0.0)) -> Tensor:
+    """Plain torch version of :func:`shade_stack`: :func:`shade_layer` on
+    all 32x128 tiles at once."""
+    hp, wp = stack.shape[-2:]
+    th, tw = STACK_TILE_H, STACK_TILE_W
+    by, bx = hp // th, wp // tw
+    dev = stack.device
+    f32 = torch.float32
+    lcol, misc = shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    tiles = stack.reshape(2 * L_CH, by, th, bx, tw).transpose(2, 3).reshape(
+        2 * L_CH, by * bx, th, tw)
+    tile = torch.arange(by * bx, device=dev)
+    x0f = ((tile % bx) * tw).to(f32)[:, None, None]
+    y0f = ((tile // bx) * th).to(f32)[:, None, None]
+    xs = ((torch.arange(tw, device=dev, dtype=f32) + x0f) + 0.5).expand(by * bx, th, tw)
+    ys = ((torch.arange(th, device=dev, dtype=f32)[:, None] + y0f) + 0.5).expand(
+        by * bx, th, tw)
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    out = shade_tiles(list(tiles), shade_tables, lights, lcol, misc, inv_vp, xs, ys,
+                      wp, hp, n_levels)
+    out = torch.stack(out).reshape(2 * O_CH, by, bx, th, tw).transpose(2, 3)
+    return out.reshape(2 * O_CH, hp, wp)

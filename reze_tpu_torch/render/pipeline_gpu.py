@@ -1,7 +1,17 @@
-"""The main-path frame: per-pass triangle setup and pair pack, the frame
-megakernel, the composite kernel and the bloom finish (counterpart of
-``render_frame_mega`` and its helpers in ``reze_tpu/render/
-pipeline_tpu.py``, for ``rasterizer="group"`` with nearest albedo)."""
+"""The frame pipelines (counterpart of ``reze_tpu/render/pipeline_tpu.py``).
+
+* :func:`render_frame_mega`, the main path (``rasterizer="group"`` with
+  nearest albedo): per-pass triangle setup and pair pack, the frame
+  megakernel, the composite kernel and the bloom finish.
+* :func:`render_frame_fast`, the per-pass renderer: seven launches of the
+  raster-pass kernel with the depth buffer carried across passes, then
+  either the two-layer stack, the stack-shade kernel and the composite
+  kernel (layered), or per-pass shading blended in draw order and the
+  channel-last bloom (non-layered). Like the reference it always rasterizes
+  with ``cfg.msaa_samples`` samples, never reads ``cfg.rasterizer``, and
+  on the non-layered branch samples level 0 nearest and skips material
+  morphs.
+"""
 
 from __future__ import annotations
 
@@ -14,8 +24,10 @@ from ..core.types import (CLASS_EYE, CLASS_HAIR, CLASS_OPAQUE, CLASS_TRANSPARENT
                           EngineConfig, Lights, ModelArrays, round_up)
 from ..kernels import composite_gpu as CG
 from ..kernels import frame_gpu as FG
+from ..kernels import raster_gpu as RG
 from ..kernels import shade_gpu as SG
 from . import post, raster
+from . import shading_fast as SF
 from .pipeline import _gather_pass
 
 Tensor = torch.Tensor
@@ -114,7 +126,7 @@ def _composite_shaded_kernel(o: Tensor, atlas_flat: Tensor, dims: FastDims,
         hm = vm.reshape(3, dims.height // 2, dims.width // 2, 2).mean(-1)
         bloom = post.extract(hm, cfg.bloom_threshold)
         bloom = post._blur_axis(post._blur_axis(bloom, 2), 1)
-        up = post._up2_axis_cf(post._up2_axis_cf(bloom, 1), 2)
+        up = post._up2_axis(post._up2_axis(bloom, 1), 2)
         img_cf = img_cf + up * cfg.bloom_intensity
     return torch.clamp(img_cf, 0.0, 1.0).permute(1, 2, 0)
 
@@ -144,3 +156,119 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     img = _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg)
     return img, ft.overflow
 
+
+def pass_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims, pos: Tensor,
+                nrm: Tensor, view_proj: Tensor, uvs: Tensor | None, p: int) -> RG.PassTables:
+    """Triangle setup + pair list of pass ``p`` for the raster-pass kernel."""
+    cls, cull, outline = _PASS_SPECS[p]
+    data = _gather_pass(model, pos, nrm, view_proj, cls, outline, cfg.outline_scale, uvs)
+    tri = raster.setup_triangles(data.corners_clip, data.valid, dims.wp, dims.hp, cull)
+    return RG.pack_tables(tri, data.corner_uv, data.corner_nrm, data.tri_mat, dims.by, dims.bx)
+
+
+def _raster_passes(model: ModelArrays, cfg: EngineConfig, dims: FastDims, pos: Tensor,
+                   nrm: Tensor, view_proj: Tensor, uvs: Tensor | None):
+    """Rasterize the seven passes in draw order, the depth buffer carried
+    from pass to pass; yields (pass index, G-buffer (N_CH, P), the pass's
+    pair overflow)."""
+    zbuf = torch.ones((cfg.msaa_samples, dims.hp, dims.wp), device=pos.device)
+    for p, (outline, depth_write, _, _) in enumerate(FG.PASS_CFG):
+        tabs = pass_tables(model, cfg, dims, pos, nrm, view_proj, uvs, p)
+        _, gbuf = RG.raster_pass(tabs, zbuf, bx=dims.bx, depth_write=depth_write,
+                                 with_attrs=not outline)
+        yield p, gbuf.reshape(RG.N_CH, dims.p), tabs.overflow
+
+
+def layered_stack(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                  tables: SG.ShadeTables, pos: Tensor, nrm: Tensor, view_proj: Tensor,
+                  uvs: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """The seven passes pushed onto the two-layer stack -> (stack (2*L_CH,
+    hp, wp), pair_overflow)."""
+    dev = pos.device
+    stack = torch.zeros((2 * SG.L_CH, dims.p), device=dev)
+    stencil = torch.zeros(dims.p, dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for p, g, ovf in _raster_passes(model, cfg, dims, pos, nrm, view_proj, uvs):
+        outline, _, write_stencil, use_stencil = FG.PASS_CFG[p]
+        stack, stencil = _push(stack, stencil, g, tables.push_tab, outline, use_stencil,
+                               write_stencil)
+        overflow = overflow + ovf
+    return stack.reshape(2 * SG.L_CH, dims.hp, dims.wp), overflow
+
+
+def render_frame_fast(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                      packed: SF.PackedMaterials | None, pos: Tensor, nrm: Tensor,
+                      view_proj: Tensor, eye_pos: Tensor, lights: Lights,
+                      uvs: Tensor | None = None, mat_mod=None,
+                      shade_tables: SG.ShadeTables | None = None
+                      ) -> tuple[Tensor, Tensor]:
+    """One frame through the per-pass renderer -> (frame (H, W, 3),
+    pair_overflow summed over the seven passes). ``packed`` is read only by
+    the non-layered branch."""
+    if cfg.layered_shading and cfg.albedo_bilinear:
+        raise NotImplementedError(
+            "the layered per-pass path with bilinear albedo needs the quad "
+            "composite, which is not ported (ROADMAP queue 1: other modes)")
+    dev = pos.device
+    inv_vp = m3.mat4_inverse(view_proj).contiguous()
+    if cfg.layered_shading:
+        tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
+            model.materials, model.atlas)
+        tables = _apply_mat_mod(tables, mat_mod)
+        stack, overflow = layered_stack(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
+        use_mips, lod_bias = _mip_args(cfg, model)
+        shaded = SG.shade_stack(stack, tables, lights, cfg.rim_light_intensity, eye_pos,
+                                inv_vp, use_mips=use_mips, lod_bias=lod_bias)
+        flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
+        return _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg), overflow
+
+    atlas_stride = int(model.atlas.texels.shape[2])
+    color = torch.zeros((dims.p, 3), device=dev)
+    stencil = torch.zeros(dims.p, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for p, g, ovf in _raster_passes(model, cfg, dims, pos, nrm, view_proj, uvs):
+        outline, _, write_stencil, use_stencil = FG.PASS_CFG[p]
+        overflow = overflow + ovf
+        if outline:
+            color = SF.blend(color, *SF.shade_outline_fast(g, packed))
+            continue
+        color = SF.blend(color, *SF.shade_material_fast(
+            g, packed, atlas_stride, lights, eye_pos, inv_vp, dims.wp, dims.hp,
+            cfg.rim_light_intensity, stencil=stencil if use_stencil else None,
+            stencil_eye_value=cfg.stencil_eye_value))
+        if write_stencil:
+            stencil = torch.where((g[RG.CH_MAT] >= 0) & (g[RG.CH_COVER] > 0),
+                                  cfg.stencil_eye_value, stencil).to(torch.int32)
+    img = color.reshape(dims.hp, dims.wp, 3)[:dims.height, :dims.width]
+    if cfg.enable_bloom:
+        img = post.apply_bloom(img, cfg.bloom_threshold, cfg.bloom_intensity)
+    return torch.clamp(img, 0.0, 1.0), overflow
+
+
+def _push(stack: Tensor, stencil: Tensor, g: Tensor, push_tab: Tensor, outline: bool,
+          use_stencil: bool, write_stencil: bool) -> tuple[Tensor, Tensor]:
+    """Push one pass's G-buffer (N_CH, P) onto the planar two-layer stack
+    (2*L_CH, P): opaque fragments clear it, translucent ones displace
+    layer 1 into layer 0, fragments under ``a_eff`` 0.001 are dropped; hair
+    alpha halves over the stencil, which the eye pass writes."""
+    mat = g[RG.CH_MAT]
+    cover = g[RG.CH_COVER]
+    cols = push_tab[torch.clamp(mat, min=0.0).to(torch.int64)]  # (P, 7)
+    a = cols[:, 1] if outline else cols[:, 0]
+    if use_stencil:
+        a = a * torch.where(stencil & (cols[:, 2] > 0.5), 0.5, 1.0)
+    a_eff = a * cover
+    present = (mat >= 0.0) & (a_eff >= 0.001)
+    a_eff = torch.where(present, a_eff, 0.0)
+    opaque = present & (a_eff > 0.999)
+    translucent = present & ~opaque
+    frag = torch.stack([
+        g[RG.CH_UIW], g[RG.CH_VIW], g[RG.CH_NXIW], g[RG.CH_NYIW], g[RG.CH_NZIW],
+        g[RG.CH_IW], g[RG.CH_Z], a_eff, torch.full_like(a_eff, 1.0 if outline else 0.0),
+        cols[:, 4], cols[:, 5], cols[:, 6]])
+    l0, l1 = stack[:SG.L_CH], stack[SG.L_CH:]
+    new_l0 = torch.where(opaque, 0.0, torch.where(translucent & (l1[SG.L_AEFF] > 0.0), l1, l0))
+    new_l1 = torch.where(present, frag, l1)
+    if write_stencil:
+        stencil = stencil | ((mat >= 0) & (cover > 0))
+    return torch.cat([new_l0, new_l1]), stencil

@@ -4,12 +4,16 @@
 ``make_step(model, cfg)`` returns ``step(state, dt, view_proj, eye_pos,
 lights, track, breath) -> (state', frame (H, W, 3))``. ``simulate`` runs
 animation sampling, breathing, tweens, bone/UV/material morphs, CCD IK,
-FK and skinning; the frame goes through ``pipeline_gpu.render_frame_mega``
-(the frame megakernel and the composite kernel).
+FK and skinning. The frame goes, as in the reference, through
+``pipeline_gpu.render_frame_mega`` (the frame megakernel and the composite
+kernel) when ``use_megakernel`` and ``layered_shading`` are both on, and
+through the per-pass renderer ``pipeline_gpu.render_frame_fast`` (the
+raster-pass kernel, then the stack-shade and composite kernels or plain
+per-pass shading) otherwise.
 
 Not ported yet, and refused rather than skipped: rigid-body physics, the
-per-pass and XLA-oracle renderers, the stream/mxu/hybrid rasterizers and
-bilinear albedo (ROADMAP queue 1).
+XLA-oracle renderer, the stream/mxu/hybrid megakernels and bilinear albedo
+on the paths that read it (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from .core.types import DiagState, EngineConfig, ModelArrays, SceneState
 from .kernels import shade_gpu as SG
 from .kernels.skinning import skin_vertices
 from .render import pipeline_gpu
+from .render import shading_fast as SF
 from .skeleton import fk
 from .skeleton import ik as ik_mod
 
@@ -31,20 +36,25 @@ from .skeleton import ik as ik_mod
 def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
     if cfg.enable_physics and model.physics.n_bodies > 0:
         raise NotImplementedError(
-            "rigid-body physics is not ported yet (ROADMAP queue 1, item 6); "
+            "rigid-body physics is not ported yet (ROADMAP queue 1, item 4); "
             "use EngineConfig(enable_physics=False)")
-    unported = {
-        "renderer": cfg.renderer not in ("auto", "tpu"),
-        "rasterizer": cfg.rasterizer != "group",
-        "use_megakernel": not cfg.use_megakernel,
-        "layered_shading": not cfg.layered_shading,
-        "albedo_bilinear": cfg.albedo_bilinear,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if cfg.renderer not in ("auto", "tpu"):
         raise NotImplementedError(
-            f"EngineConfig {', '.join(bad)} selects a path that is not ported "
-            "yet (ROADMAP queue 1); only the group megakernel path runs")
+            f"EngineConfig renderer={cfg.renderer!r} is not ported yet "
+            "(ROADMAP queue 1, item 8)")
+    if _uses_megakernel(cfg) and cfg.rasterizer != "group":
+        raise NotImplementedError(
+            f"EngineConfig rasterizer={cfg.rasterizer!r} selects a megakernel that is "
+            "not ported yet (ROADMAP queue 1, items 1-3)")
+    if cfg.albedo_bilinear and cfg.layered_shading:
+        raise NotImplementedError(
+            "EngineConfig albedo_bilinear=True needs the quad composite, which is not "
+            "ported yet (ROADMAP queue 1, item 7)")
+
+
+def _uses_megakernel(cfg: EngineConfig) -> bool:
+    """The reference's routing: the megakernel path only with both knobs on."""
+    return cfg.use_megakernel and cfg.layered_shading
 
 
 def make_step(model: ModelArrays, cfg: EngineConfig):
@@ -53,6 +63,9 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     _check_config(model, cfg)
     dims = pipeline_gpu.make_dims_fast(cfg)
     shade_tables = SG.pack_shade_tables(model.materials, model.atlas)
+    mega = _uses_megakernel(cfg)
+    # material table of the non-layered per-pass shading
+    packed = None if cfg.layered_shading else SF.pack_materials(model.materials, model.atlas)
 
     def simulate(state: SceneState, dt, track, breath):
         """Animation + IK/FK + skinning -> (t, rot, trans, mw, tween_state,
@@ -115,9 +128,14 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     def step(state: SceneState, dt, view_proj, eye_pos, lights, track, breath):
         t, rot, trans, mw, tween_state, pos, nrm, uvs, mat_mod = simulate(
             state, dt, track, breath)
-        frame, pair_overflow = pipeline_gpu.render_frame_mega(
-            model, cfg, dims, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
-            mat_mod=mat_mod, shade_tables=shade_tables)
+        if mega:
+            frame, pair_overflow = pipeline_gpu.render_frame_mega(
+                model, cfg, dims, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
+                mat_mod=mat_mod, shade_tables=shade_tables)
+        else:
+            frame, pair_overflow = pipeline_gpu.render_frame_fast(
+                model, cfg, dims, packed, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
+                mat_mod=mat_mod, shade_tables=shade_tables)
         new_state = dataclasses.replace(
             state, time=t, local_rot=rot, local_trans=trans, morph_weights=mw,
             tween=tween_state,

@@ -4,7 +4,8 @@
 ``reze_tpu.testing.make_test_model`` (identical arrays for the same
 arguments): a bone chain with an append, one IK chain, one textured quad
 per draw class, one vertex morph and two rigid bodies. ``random_pass_inputs``
-makes seeded random triangles for the pair-pack and kernel checks.
+makes seeded random triangles for the pair-pack and kernel checks, and
+``random_stack`` a seeded fragment stack for the stack shade.
 """
 
 from __future__ import annotations
@@ -269,6 +270,67 @@ def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
             t["tex"], t["edge"], hp // FG.TILE_H, wp // FG.TILE_W, cap,
             with_attrs=not outline))
     return FG.pack_frame_rows(parts, hp // FG.TILE_H, wp // FG.TILE_W)
+
+
+def random_raster_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
+                         device="cuda"):
+    """Raster-pass tables (``raster_gpu.PassTables``), one per entry of
+    ``n_tris``, from :func:`random_pass_inputs` with no culling. Each
+    triangle's material id is its own index, so a G-buffer names the
+    triangle that won each pixel."""
+    import torch
+
+    from .kernels import raster_gpu as RG
+    from .render import raster
+
+    out = []
+    for d in random_pass_inputs(seed, n_tris):
+        t = {k: torch.as_tensor(v, device=device) for k, v in d.items()}
+        tri = raster.setup_triangles(t["corners_clip"], t["valid"], wp, hp, raster.CULL_NONE)
+        out.append(RG.pack_tables(tri, t["corner_uv"], t["corner_nrm"],
+                                  torch.arange(len(d["valid"]), device=device),
+                                  hp // RG.TILE_H, wp // RG.TILE_W))
+    return out
+
+
+def random_stack(seed: int, hp: int, wp: int, n_groups: int = 3,
+                 empty_tiles=((0, 0),), device="cuda"):
+    """A seeded planar two-layer stack (2*L_CH, hp, wp) for the stack
+    shade: perspective-divided uv with per-tile gradients from 1/250 to 1/2
+    texel-space units per pixel (so the mip LOD spans the levels), random
+    normals, depths and group ids below ``n_groups``, a tenth outline
+    fragments, a third empty pixels, and layer 0 empty in each 32x128 tile
+    (row, column) of ``empty_tiles``."""
+    import torch
+
+    from .kernels import shade_gpu as SG
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:hp, 0:wp].astype(np.float32) + 0.5
+    by, bx = hp // SG.STACK_TILE_H, wp // SG.STACK_TILE_W
+    layers = []
+    for _ in range(2):
+        st = np.zeros((SG.L_CH, hp, wp), np.float32)
+        iw = rng.uniform(0.5, 2.0, (hp, wp))
+        grad = rng.choice([0.004, 0.02, 0.1, 0.5], (by, bx)).repeat(
+            SG.STACK_TILE_H, 0).repeat(SG.STACK_TILE_W, 1)
+        u = xs * grad + rng.uniform(-1, 1) + 0.002 * rng.normal(size=(hp, wp))
+        v = ys * grad * 0.7 + rng.uniform(-1, 1) + 0.002 * rng.normal(size=(hp, wp))
+        nrm = rng.normal(size=(3, hp, wp))
+        nrm /= np.linalg.norm(nrm, axis=0, keepdims=True)
+        st[SG.L_UIW], st[SG.L_VIW] = u * iw, v * iw
+        st[SG.L_NXIW:SG.L_NZIW + 1] = nrm * iw
+        st[SG.L_IW] = iw
+        st[SG.L_Z] = rng.uniform(0.05, 0.95, (hp, wp))
+        st[SG.L_AEFF] = np.where(rng.random((hp, wp)) < 0.3, 0.0, rng.uniform(0, 1, (hp, wp)))
+        st[SG.L_OUT] = rng.random((hp, wp)) < 0.1
+        for ch in (SG.L_RAMP, SG.L_TEX, SG.L_EDGE):
+            st[ch] = rng.integers(0, n_groups, (hp, wp))
+        layers.append(st)
+    for ti, tj in empty_tiles:
+        layers[0][SG.L_AEFF, ti * SG.STACK_TILE_H:(ti + 1) * SG.STACK_TILE_H,
+                  tj * SG.STACK_TILE_W:(tj + 1) * SG.STACK_TILE_W] = 0.0
+    return torch.as_tensor(np.concatenate(layers), device=device)
 
 
 def decoded_index(o, layer: int) -> np.ndarray:

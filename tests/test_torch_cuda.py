@@ -1,12 +1,14 @@
 """The CUDA kernels against their plain torch twins on the card, and the
-whole step on the GPU against the step on the CPU. Marked ``cuda``: every
-test skips without a CUDA device. Run on a GPU machine with
+whole step on the GPU against the step on the CPU, for the main path and
+both per-pass paths. Marked ``cuda``: every test skips without a CUDA
+device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
 
 Bounds are those of the CPU parity tests (``testing.compare_shade`` for
-the frame kernel, 1e-6 for the composite, 1/255 on 99 % of pixels for a
-frame)."""
+the frame and stack-shade kernels, 1e-6 for the composite, material id and
+cover equal on 99.5 % of pixels and depths within 1e-6 on 99.5 % of
+samples for the raster pass, 1/255 on 99 % of pixels for a frame)."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from reze_tpu_torch.camera import Camera
 from reze_tpu_torch.core.types import EngineConfig, init_scene_state
 from reze_tpu_torch.kernels import composite_gpu as CG
 from reze_tpu_torch.kernels import frame_gpu as FG
+from reze_tpu_torch.kernels import raster_gpu as RG
 from reze_tpu_torch.kernels import shade_gpu as SG
 from reze_tpu_torch.render import pipeline
 from reze_tpu_torch.step import make_step
@@ -81,8 +84,53 @@ def test_wrappers_refuse_bad_inputs(dev):
         CG.composite(o, atlas, half0=True, half1=True, with_bloom=True)
 
 
-def test_step_on_gpu_matches_cpu(dev):
-    cfg = EngineConfig(width=256, height=128, enable_physics=False)
+@pytest.mark.parametrize("s,chain", [(4, ((True, True), (False, False))),
+                                     (1, ((True, False), (False, True)))])
+def test_raster_kernel_matches_twin(dev, s, chain):
+    tabs = ptesting.random_raster_tables(11, (300, 300), 64, 256, device=dev)
+    zk = torch.ones((s, 64, 256), device=dev)
+    zt = torch.ones((s, 64, 256), device=dev)
+    for tb, (dw, attrs) in zip(tabs, chain):
+        before = RG.raster_pass.launches
+        zk, gk = RG.raster_pass(tb, zk, bx=2, depth_write=dw, with_attrs=attrs)
+        zt, gt = RG.raster_pass_twin(tb, zt, bx=2, depth_write=dw, with_attrs=attrs)
+        torch.cuda.synchronize()
+        assert RG.raster_pass.launches == before + 1
+        assert (gk[RG.CH_MAT] == gt[RG.CH_MAT]).float().mean() >= ptesting.SAME_FRAC
+        assert (gk[RG.CH_COVER] == gt[RG.CH_COVER]).float().mean() >= ptesting.SAME_FRAC
+        assert ((zk - zt).abs() <= 1e-6).float().mean() >= ptesting.SAME_FRAC
+
+
+@pytest.mark.parametrize("use_mips", [True, False])
+def test_shade_stack_kernel_matches_twin(dev, use_mips):
+    stack = ptesting.random_stack(7, 64, 256, empty_tiles=((0, 0), (1, 1)), device=dev)
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    kw = dict(use_mips=use_mips, lod_bias=(1.0, 0.0))
+    before = SG.shade_stack.launches
+    got = SG.shade_stack(stack, tables, lights, 0.45, eye, inv_vp, **kw)
+    want = SG.shade_stack_twin(stack, tables, lights, 0.45, eye, inv_vp, **kw)
+    torch.cuda.synchronize()
+    assert SG.shade_stack.launches == before + 1
+    res = ptesting.compare_shade(got.cpu(), want.cpu())
+    assert res["ok"], (res["same_frac"], res["max_abs_err"])
+
+
+def test_new_wrappers_refuse_bad_inputs(dev):
+    tabs = ptesting.random_raster_tables(11, (30,), 32, 128, device=dev)[0]
+    with pytest.raises(ValueError):  # 5 samples
+        RG.raster_pass(tabs, torch.ones((5, 32, 128), device=dev), bx=1, depth_write=True)
+    with pytest.raises(ValueError):  # not whole 32-row tiles
+        RG.raster_pass(tabs, torch.ones((4, 16, 128), device=dev), bx=1, depth_write=True)
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    with pytest.raises(ValueError):
+        SG.shade_stack(torch.zeros((2 * SG.L_CH, 16, 128), device=dev), tables, lights,
+                       0.45, eye, inv_vp)
+
+
+@pytest.mark.parametrize("change", [{}, {"use_megakernel": False}, {"layered_shading": False}],
+                         ids=["main", "layered", "per_pass"])
+def test_step_on_gpu_matches_cpu(dev, change):
+    cfg = EngineConfig(width=256, height=128, enable_physics=False, **change)
     cam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0), aspect=2.0)
     frames = {}
     for d in ("cpu", dev):

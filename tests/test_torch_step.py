@@ -61,12 +61,14 @@ def _tween_args(j):
     return mask, targets
 
 
-@pytest.fixture(scope="module")
-def runs():
+def run_frames(**cfg_kw):
+    """Both packages' ``make_step`` for N_FRAMES frames with the same
+    EngineConfig changes -> per frame the JAX and port frames and states.
+    The second frame sets a morph weight and starts a bone tween."""
     jmodel = jtesting.make_test_model(tex_hw=TEX_HW)
     pmodel = ptesting.make_test_model(tex_hw=TEX_HW, device="cpu")
-    jcfg = JT.EngineConfig(width=W, height=H, enable_physics=False, renderer="tpu")
-    pcfg = PT.EngineConfig(width=W, height=H, enable_physics=False)
+    jcfg = JT.EngineConfig(width=W, height=H, enable_physics=False, renderer="tpu", **cfg_kw)
+    pcfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **cfg_kw)
     cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
                       aspect=W / H)
     vp, eye = np.array(cam.view_proj()), np.array(cam.position())
@@ -105,6 +107,11 @@ def runs():
     return out
 
 
+@pytest.fixture(scope="module")
+def runs():
+    return run_frames()
+
+
 @pytest.mark.parametrize("f", range(N_FRAMES))
 def test_step_frame_matches(runs, f):
     ref, port = runs[f]["jframe"], runs[f]["pframe"]
@@ -136,8 +143,9 @@ def test_physics_refused():
 
 
 @pytest.mark.parametrize("change", [
-    {"rasterizer": "stream"}, {"use_megakernel": False}, {"layered_shading": False},
+    {"rasterizer": "stream"}, {"rasterizer": "mxu"}, {"rasterizer": "hybrid"},
     {"albedo_bilinear": True}, {"renderer": "xla"},
+    {"use_megakernel": False, "albedo_bilinear": True},
 ])
 def test_unported_paths_refused(change):
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
