@@ -14,7 +14,8 @@ Phases, each printed on its own line:
    composite kernels on seeded random triangles (16x256, both coverage
    modes) and on the 1920x1080 frame of the main path; the raster-pass and
    stack-shade kernels on the seeded tables and stack of the CPU tests
-   (64x256) and on the 1080p frame's own seven pass tables and stack;
+   (64x256) and on the 1080p frame's own seven pass tables and stack (the
+   raster pass bit for bit in all nine G-buffer channels and the depths);
 4. the three render paths of ``make_step`` at 1920x1080, physics off, on
    the synthetic model with the camera close enough that its quads span
    the frame height, 5 frames each: the main path (default
@@ -99,7 +100,7 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def main() -> int:
@@ -201,16 +202,19 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         require(res["ok"], (name, res["same_frac"], res["max_abs_err"]))
 
     # 3b. raster pass and stack shade against their twins on the CPU tests'
-    # seeded tables and stack, with the CPU tests' bounds (kernel and twin do
-    # the same float operations, so max_abs_err 0 and equal_frac 1 are
-    # expected and printed)
+    # seeded tables and stack, with the CPU tests' bounds (the raster pass
+    # also bit for bit; the stack shade's max_abs_err and equal_frac are
+    # printed)
     raster_err, shade_err = 0.0, 0.0
 
     def check_raster(tabs, chain, s, hp, wp, label):
         """Chain the passes through kernel and twin from fresh depth
-        buffers, with the CPU tests' bounds (material id and cover equal on
-        99.5 % of pixels, depths within 1e-6 on 99.5 % of samples); -> the
-        largest difference of any channel."""
+        buffers. Each pass must meet the CPU tests' bounds
+        (``testing.compare_raster``: material id and cover, depths, and z
+        and the six attribute planes where a triangle won) and, since
+        kernel and twin do the same float operations, equal the twin bit
+        for bit in all nine channels and every depth; -> the largest
+        difference of any channel."""
         zk = torch.ones((s, hp, wp), device=dev)
         zt = torch.ones((s, hp, wp), device=dev)
         worst = 0.0
@@ -219,16 +223,13 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                                     with_attrs=attrs)
             zt, gt = RG.raster_pass_twin(tb, zt, bx=wp // RG.TILE_W, depth_write=dw,
                                          with_attrs=attrs)
-            err = max((gk - gt).abs().max().item(), (zk - zt).abs().max().item())
-            equal = min((gk == gt).float().mean().item(), (zk == zt).float().mean().item())
-            fracs = [(gk[RG.CH_MAT] == gt[RG.CH_MAT]).float().mean().item(),
-                     (gk[RG.CH_COVER] == gt[RG.CH_COVER]).float().mean().item(),
-                     ((zk - zt).abs() <= 1e-6).float().mean().item()]
+            res = testing.compare_raster(zk, gk, zt, gt)
             phase("check", kernel="raster_pass", tables=f"{label}_pass{i}", samples=s,
-                  max_abs_err=err, equal_frac=equal, mat_cover_z_fracs=fracs,
+                  max_abs_err=res["max_abs_err"], equal_frac=res["equal_frac"],
+                  mat_cover_z_fracs=res["fracs"], drawn_err=res["drawn_err"],
                   drawn=(gk[RG.CH_MAT] >= 0).float().mean().item())
-            require(min(fracs) >= testing.SAME_FRAC, (label, i, fracs))
-            worst = max(worst, err)
+            require(res["ok"] and res["max_abs_err"] == 0.0, (label, i, res))
+            worst = max(worst, res["max_abs_err"])
         return worst
 
     rtabs = testing.random_raster_tables(11, (300, 300), 64, 256, device=dev)
@@ -398,35 +399,53 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           raster_pass_ms=f"{r_k:.4f}", raster_pass_twin_ms=f"{r_t:.3f}",
           shade_stack_ms=f"{sh_k:.4f}", shade_stack_twin_ms=f"{sh_t:.3f}")
 
-    # bounds from this run's inputs: bytes each input read once and each
-    # output written once; operations counted from the pairs these tables hold
+    # bounds from this run's inputs: the bytes each function must move (each
+    # input value it needs read once, each output written once) and the
+    # operations these inputs need, counted from the pairs the tables hold
     p = dims.hp * dims.wp
     s = cfg.msaa_samples
     walk_ops = PLANE_OPS + SAMPLE_OPS * s
-    frame_pairs = int(ft.counts.sum())
-    b_frame = bound(nbytes(ft.rows, ft.starts, ft.counts, *tables[1:4], o_k),
+    shade_tabs = tables[1:4]
+    frame_pairs = int(ft.counts.sum())  # one row per pair
+    b_frame = bound(frame_pairs * FG.ROW_W * 4 + nbytes(ft.starts, ft.counts, *shade_tabs, o_k),
                     frame_pairs * FG.TILE_H * FG.TILE_W * walk_ops + 2 * p * SHADE_OPS)
-    b_comp = bound(nbytes(o_t, atlas, img_k, seed_k), p * COMPOSITE_OPS)
-    rb_bytes, rb_ops = 0, 0
+    # a half-res layer needs its footprint planes (O_DXDY, O_FX, O_FY) on
+    # even rows only (its even columns share those rows' memory sectors)
+    half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
+    b_comp = bound((2 * SG.O_CH - 1.5 * half_layers) * p * 4 + nbytes(atlas, img_k, seed_k),
+                   p * COMPOSITE_OPS)
+    band_px, bands = RG.BAND_H * RG.TILE_W, torch.arange(RG.BANDS, device=dev)
     y0 = (torch.arange(dims.b, device=dev) // dims.bx * RG.TILE_H).float()
+    rb_bytes, rb_ops, touched_frac = 0, 0, []
     for tb, (dw, _) in zip(ptabs, pchain):
-        # tables and depths in, depths out where written, the G-buffer out
-        rb_bytes += (nbytes(tb.tab, tb.ids, tb.starts, tb.counts, zbuf)
-                     + (nbytes(zbuf) if dw else 0) + RG.N_CH * p * 4)
+        n = int(tb.counts.sum())
+        tile_of = torch.repeat_interleave(torch.arange(dims.b, device=dev), tb.counts.long())
+        ids = tb.ids[:n].long()
+        b0, b1 = RG._band_range(tb.tab[ids, RG.C_YMIN], tb.tab[ids, RG.C_YMAX], y0[tile_of])
         # the 8-row bands each pair's y range touches in its tile
-        tile_of = torch.repeat_interleave(torch.arange(dims.b, device=dev),
-                                          tb.counts.long())
-        rows = tb.tab[tb.ids[:tile_of.numel()].long()]
-        b0, b1 = RG._band_range(rows[:, RG.C_YMIN], rows[:, RG.C_YMAX], y0[tile_of])
-        rb_ops += int((b1 - b0 + 1).sum()) * RG.BAND_H * RG.TILE_W * walk_ops
+        hit = ((bands >= b0[:, None]) & (bands <= b1[:, None])).float()
+        touched = int((torch.zeros((dims.b, RG.BANDS), device=dev)
+                       .index_add_(0, tile_of, hit) > 0).sum())
+        touched_frac.append(round(touched / (dims.b * RG.BANDS), 4))
+        # the pairs' ids and rows, starts and counts in; depths in (and out
+        # with depth writes) only in bands some pair touches; the G-buffer out
+        rb_bytes += (n * 4 + int(torch.unique(ids).numel()) * RG.ROW_W * 4
+                     + nbytes(tb.starts, tb.counts)
+                     + touched * band_px * s * 4 * (2 if dw else 1) + RG.N_CH * p * 4)
+        rb_ops += int(hit.sum()) * band_px * walk_ops
     b_raster = bound(rb_bytes / FG.N_PASSES, rb_ops / FG.N_PASSES)
-    shaded_px = sum(int((stack[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
-        dims.by, RG.TILE_H, dims.bx, RG.TILE_W).any(3).any(1).sum()) for layer in range(2))
-    b_shade = bound(nbytes(stack, *tables[1:4], s_k),
-                    shaded_px * RG.TILE_H * RG.TILE_W * SHADE_OPS)
-    phase("bounds", **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
-        ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
-        ("shade_stack", b_shade))})
+    # a_eff of both layers everywhere; a layer's other channels only in the
+    # 32x128 tiles where it is present (elsewhere its output is fixed); all
+    # 18 output planes
+    present = [int((stack[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
+        dims.by, RG.TILE_H, dims.bx, RG.TILE_W).any(3).any(1).sum()) for layer in range(2)]
+    tile_px = RG.TILE_H * RG.TILE_W
+    b_shade = bound(2 * p * 4 + sum(present) * tile_px * (SG.L_CH - 1) * 4
+                    + nbytes(*shade_tabs, s_k), sum(present) * tile_px * SHADE_OPS)
+    phase("bounds", raster_touched_band_frac=touched_frac, shade_present_tiles=present,
+          tiles=dims.b, **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
+              ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
+              ("shade_stack", b_shade))})
 
     # 6. each path's step at a small size on the GPU against the CPU (twins)
     scam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),

@@ -9,9 +9,11 @@
 // the empty-layer skip is per 32x128 tile; the stack comes from device
 // memory, planar (24, hp, wp).
 //
-// What bounds it on this card: device memory. Each pixel reads 24 floats
-// and writes 18 (168 B); the shade is ~400 float operations per pixel and
-// layer, under the card's float rate for that traffic. The design: 1024
+// What bounds it on this card: device memory. Each pixel writes 18 floats
+// and reads 4 of each layer's 12 channels (a_eff, 1/w, u/w, v/w), the other
+// 8 only in tiles where the layer is present (at most 168 B per pixel); the
+// shade is ~400 float operations per pixel and layer, under the card's
+// float rate for that traffic. The design: 1024
 // threads per tile, each owning four pixels one band (8 rows) apart, so a
 // warp reads and writes 32 consecutive floats of a row (coalesced planar
 // access). u and v of the tile are staged in shared memory (2 x 16 KB) for

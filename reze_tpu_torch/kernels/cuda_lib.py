@@ -80,31 +80,25 @@ def library() -> ctypes.CDLL:
     so = out_dir / "libreze_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tag = f"tmp-{os.getpid()}"
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        objs, procs = [], []
-        for src in (p for p in sources if p.suffix == ".cu"):
-            obj = out_dir / f"{src.stem}.{tag}.o"
-            objs.append(obj)
-            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True))
-        logs = [(proc.communicate()[0], proc.returncode) for proc in procs]
-        build_log = "".join(log for log, _ in logs)
-        if any(rc != 0 for _, rc in logs):
-            build_seconds = time.perf_counter() - t0
-            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        nvcc, tag, t0 = _nvcc(), f"tmp-{os.getpid()}", time.perf_counter()
+        cus = [p for p in sources if p.suffix == ".cu"]
+        objs = [str(out_dir / f"{p.stem}.{tag}.o") for p in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)], text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for p, o in zip(cus, objs)]
+        build_log = "".join(p.communicate()[0] for p in procs)
         tmp = out_dir / f"{tag}.so"
-        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                             capture_output=True, text=True)
+        ok = not any(p.returncode for p in procs)
+        if ok:  # link the objects into one library
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs], text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            build_log, ok = build_log + res.stdout, res.returncode == 0
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
         build_seconds = time.perf_counter() - t0
-        build_log += res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
         os.replace(tmp, so)
-        for obj in objs:
-            obj.unlink()
+        for o in objs:
+            os.unlink(o)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

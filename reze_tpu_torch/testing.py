@@ -355,6 +355,37 @@ def decoded_index(o, layer: int) -> np.ndarray:
 SAME_FRAC = 0.995
 AEFF_TOL = 1e-5
 LIT_TOL = 1e-4
+# of a raster-pass comparison: depths lie in [0, 1], so a few float32
+# ulps; z and attributes where the winner agrees, as rtol and atol
+Z_TOL = 1e-6
+RASTER_TOL = 1e-5
+
+
+def compare_raster(z_test, g_test, z_ref, g_ref) -> dict:
+    """Raster-pass outputs (depth buffer (S, hp, wp), G-buffer (N_CH, hp,
+    wp)) against a reference: material id and cover equal on at least
+    SAME_FRAC of pixels, depths within Z_TOL on SAME_FRAC of samples, and
+    where the material id agrees and is >= 0, the centre z and the six
+    attribute planes within RASTER_TOL (rtol and atol). -> {"fracs": [mat,
+    cover, depth], "drawn_err": the largest of those z/attribute
+    differences, "max_abs_err" and "equal_frac" over every channel and
+    depth, "ok"}."""
+    from .kernels import raster_gpu as RG
+
+    mat_same = g_test[RG.CH_MAT] == g_ref[RG.CH_MAT]
+    fracs = [mat_same.float().mean().item(),
+             (g_test[RG.CH_COVER] == g_ref[RG.CH_COVER]).float().mean().item(),
+             ((z_test - z_ref).abs() <= Z_TOL).float().mean().item()]
+    chans = [*range(RG.CH_UIW, RG.CH_IW + 1), RG.CH_Z]
+    drawn = mat_same & (g_ref[RG.CH_MAT] >= 0)
+    d = (g_test[chans] - g_ref[chans]).abs()[:, drawn]
+    excess = d - RASTER_TOL * (1 + g_ref[chans].abs()[:, drawn])
+    return {"fracs": fracs, "drawn_err": d.max().item() if d.numel() else 0.0,
+            "max_abs_err": max((g_test - g_ref).abs().max().item(),
+                               (z_test - z_ref).abs().max().item()),
+            "equal_frac": min((g_test == g_ref).float().mean().item(),
+                              (z_test == z_ref).float().mean().item()),
+            "ok": min(fracs) >= SAME_FRAC and not (excess > 0).any().item()}
 
 
 def compare_shade(o_test, o_ref) -> dict:

@@ -173,6 +173,24 @@ def test_raster_pass_matches(raster_runs, s, p):
             assert (pg[ch][empty] == 0).all()
 
 
+@pytest.mark.parametrize("ch", [RG.CH_Z, RG.CH_UIW, RG.CH_IW])
+def test_compare_raster_checks_drawn_channels(raster_runs, ch):
+    """The kernel-against-twin check: a wrong z or attribute plane where a
+    triangle won fails it; a change where nothing won is only reported."""
+    z, g = (torch.as_tensor(x) for x in raster_runs[4][1][0])  # pass 0: depth + attributes
+    res = ptesting.compare_raster(z, g, z, g)
+    assert res["ok"] and res["max_abs_err"] == 0.0 and res["equal_frac"] == 1.0
+    drawn, empty = (g[RG.CH_MAT] >= 0).nonzero(), (g[RG.CH_MAT] < 0).nonzero()
+    bad = g.clone()
+    bad[(ch, *drawn[len(drawn) // 2])] += 1e-3
+    res = ptesting.compare_raster(z, bad, z, g)
+    assert not res["ok"] and res["drawn_err"] == pytest.approx(1e-3, rel=1e-2)
+    off = g.clone()
+    off[(ch, *empty[0])] += 1.0
+    res = ptesting.compare_raster(z, off, z, g)
+    assert res["ok"] and res["max_abs_err"] == 1.0
+
+
 @pytest.fixture(scope="module")
 def shade_runs():
     """Stack shade with mips on and off, both packages, one JAX compile."""
