@@ -16,16 +16,19 @@ Phases, each printed on its own line:
    stack-shade kernels on the seeded tables and stack of the CPU tests
    (64x256) and on the 1080p frame's own seven pass tables and stack (the
    raster pass bit for bit in all nine G-buffer channels and the depths);
-4. the three render paths of ``make_step`` at 1920x1080, physics off, on
+   the hybrid, mxu and stream kernels bit for bit in every output channel
+   on the CPU tests' seeded tables and on the 1080p frame's own tables;
+4. the six render paths of ``make_step`` at 1920x1080, physics off, on
    the synthetic model with the camera close enough that its quads span
    the frame height, 5 frames each: the main path (default
-   ``EngineConfig``), the layered per-pass path (``use_megakernel=False``)
+   ``EngineConfig``), the other three megakernels (``rasterizer`` "stream",
+   "mxu", "hybrid"), the layered per-pass path (``use_megakernel=False``)
    and the non-layered per-pass path (``layered_shading=False``). Each
    checks finite frames, the covered fraction, no pair overflow and its
    kernels' launches per frame (counts set to 0 just before the path and
    read just after);
 5. timing: milliseconds per frame of each path (host clock over
-   state-carrying steps, the three paths twice in turns in one call), and
+   state-carrying steps, the six paths twice in turns in one call), and
    each kernel next to its twin at the 1080p shapes (CUDA events), with its
    bound;
 6. each path's step at 256x128 on the GPU against the step on the CPU
@@ -57,9 +60,12 @@ HBM_BPS = 3.35e12
 F32_OPS = 67e12
 # float operations per (pixel, pair) of a raster walk: three edge planes
 # and the depth plane (2 products + 2 sums each), then per sample three
-# edge offsets and the depth offset added and tested (8)
+# edge offsets and the depth offset added and tested (8); the mxu kernel
+# evaluates the four planes at every sample and tests them (16 + 4), then
+# the centre depth (4)
 PLANE_OPS = 16
 SAMPLE_OPS = 8
+MXU_SAMPLE_OPS = PLANE_OPS + 4
 # float operations of one pixel's toon/rim shade (shade.cuh::shade_pixel:
 # 4 lights x 9 knots x 3 channels of hat-basis sums dominate)
 SHADE_OPS = 400
@@ -157,6 +163,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import cuda_lib
     from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_hybrid as FH
+    from reze_tpu_torch.kernels import frame_mxu as FM
+    from reze_tpu_torch.kernels import frame_stream as FS
     from reze_tpu_torch.kernels import raster_gpu as RG
     from reze_tpu_torch.kernels import shade_gpu as SG
     from reze_tpu_torch.render import pipeline, pipeline_gpu
@@ -249,6 +258,33 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         require(res["ok"], ("random stack", mips, err, res["same_frac"]))
         shade_err = max(shade_err, err)
 
+    # 3c. the hybrid, mxu and stream kernels against their twins on the
+    # same seeded tables, bit for bit in every output channel
+    exact_err = {"hybrid": 0.0, "mxu": 0.0, "stream": 0.0}
+
+    def check_exact(kernel, label, got, want):
+        frac, err = testing.bit_diff(got, want)
+        phase("check", kernel=kernel, tables=label, equal_frac=frac, max_abs_err=err)
+        require(frac == 1.0, (kernel, label, frac, err))
+        exact_err[kernel] = max(exact_err[kernel], err)
+
+    for name, analytic, mips, n in (("msaa_mips", False, True, 4),
+                                    ("analytic_nomips", True, False, 1)):
+        kw = dict(hp=16, wp=256, n_samples=n, use_mips=mips, lod_bias=(1.0, 0.0),
+                  analytic=analytic)
+        hargs = (rft, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
+        check_exact("hybrid", f"random_16x256_{name}", FH.render_megakernel_hybrid(*hargs, **kw),
+                    FH.render_megakernel_hybrid_twin(*hargs, **kw))
+    for n in (4, 2):
+        check_exact("mxu", f"random_16x256_s{n}",
+                    FM.render_megakernel_mxu(rft, hp=16, wp=256, n_samples=n),
+                    FM.render_megakernel_mxu_twin(rft, hp=16, wp=256, n_samples=n))
+    rst = testing.random_stream_tables(11, (400,) * 7, 16, 256, device=dev)
+    for n in (4, 1):
+        check_exact("stream", f"random_16x256_s{n}",
+                    FS.render_megakernel_stream(rst, hp=16, wp=256, n_samples=n),
+                    FS.render_megakernel_stream_twin(rst, hp=16, wp=256, n_samples=n))
+
     # the main path's model, camera and inputs
     cfg = EngineConfig(width=W, height=H, enable_physics=False)
     model = testing.make_test_model(device=dev)
@@ -265,12 +301,14 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     track = sampler.empty_animation(j, nm, dev)
     vp, eye = cam.view_proj(dev), cam.position(dev)
     dt = torch.tensor(1 / 60, device=dev)
-    paths = {"main": cfg, "layered": dataclasses.replace(cfg, use_megakernel=False),
+    paths = {"main": cfg, **{r: dataclasses.replace(cfg, rasterizer=r)
+                             for r in ("stream", "mxu", "hybrid")},
+             "layered": dataclasses.replace(cfg, use_megakernel=False),
              "per_pass": dataclasses.replace(cfg, layered_shading=False)}
     steps = {name: make_step(model, c) for name, c in paths.items()}
     step = steps["main"]
 
-    # 3c. every kernel against its twin on the 1080p frame's own inputs
+    # 3d. every kernel against its twin on the 1080p frame's own inputs
     dims = pipeline_gpu.make_dims_fast(cfg)
     state0 = init_scene_state(model)
     sim = step.simulate(state0, dt, track, breath)
@@ -314,13 +352,27 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           equal_frac=(s_k == s_t).float().mean().item(), same_frac=res["same_frac"])
     require(res["ok"], ("main path stack", err, res["same_frac"]))
     shade_err = max(shade_err, err)
+    fkw_h = dict(fkw, analytic=False)
+    check_exact("hybrid", f"main_path_{W}x{H}", FH.render_megakernel_hybrid(*fargs, **fkw_h),
+                FH.render_megakernel_hybrid_twin(*fargs, **fkw_h))
+    mkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples)
+    check_exact("mxu", f"main_path_{W}x{H}", FM.render_megakernel_mxu(ft, **mkw),
+                FM.render_megakernel_mxu_twin(ft, **mkw))
+    st = pipeline_gpu._build_stream_tables(model, cfg, dims, tables, pos, nrm, vp, None)
+    raw_k = FS.render_megakernel_stream(st, **mkw)
+    check_exact("stream", f"main_path_{W}x{H}", raw_k, FS.render_megakernel_stream_twin(st, **mkw))
 
-    # 4. the three paths, 5 frames each, counts set to 0 just before each
-    counters = {"frame": FG.render_megakernel, "composite": CG.composite,
-                "raster_pass": RG.raster_pass, "shade_stack": SG.shade_stack}
-    expected = {"main": {"frame": 1, "composite": 1, "raster_pass": 0, "shade_stack": 0},
-                "layered": {"frame": 0, "composite": 1, "raster_pass": 7, "shade_stack": 1},
-                "per_pass": {"frame": 0, "composite": 0, "raster_pass": 7, "shade_stack": 0}}
+    # 4. the six paths, 5 frames each, counts set to 0 just before each
+    counters = {"frame": FG.render_megakernel, "stream": FS.render_megakernel_stream,
+                "mxu": FM.render_megakernel_mxu, "hybrid": FH.render_megakernel_hybrid,
+                "composite": CG.composite, "raster_pass": RG.raster_pass,
+                "shade_stack": SG.shade_stack}
+    expected = {"main": {"frame": 1, "composite": 1},
+                "stream": {"stream": 1, "shade_stack": 1, "composite": 1},
+                "mxu": {"mxu": 1, "shade_stack": 1, "composite": 1},
+                "hybrid": {"hybrid": 1, "composite": 1},
+                "layered": {"composite": 1, "raster_pass": 7, "shade_stack": 1},
+                "per_pass": {"raster_pass": 7}}
     mask = torch.zeros(j, dtype=torch.bool, device=dev)
     mask[2] = True
     target = torch.zeros((j, 4), device=dev)
@@ -355,7 +407,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         require(all(bool(torch.isfinite(fr).all()) for fr in frames), (name, "finite"))
         require(min(covered) > 0.05, (name, f"covered fraction {covered}"))
         require(all(int(o) == 0 for o in overflow), (name, f"pair overflow {overflow}"))
-        want = {k: n * N_FRAMES for k, n in expected[name].items()}
+        want = {k: expected[name].get(k, 0) * N_FRAMES for k in counters}
         require(launches[name] == want, (name, "launches", launches[name], want))
         require((frames[-1] - frames[0]).abs().max().item() > 0.05,
                 (name, "the tween moves the pose"))
@@ -364,7 +416,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     # host-bound), the paths in turns in this one call; CUDA events for the
     # kernels and their twins
     frame_ms = {name: [] for name in paths}
-    for name in list(paths) + list(paths)[::-1]:  # in turns: a, b, c, c, b, a
+    for name in list(paths) + list(paths)[::-1]:  # in turns: a..f, f..a
         state = states[name]
         for _ in range(3):
             state, _ = steps[name](state, dt, vp, eye, lights, track, breath)
@@ -392,12 +444,24 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     sh_t0 = cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)
     sh_k = cuda_ms(lambda: SG.shade_stack(*sargs, **skw), 50)
     sh_t = (sh_t0 + cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)) / 2
+    new_ms = {}  # kernel: (kernel ms, twin ms), the twin timed before and after
+    for name, kern, twin in (
+            ("hybrid", lambda: FH.render_megakernel_hybrid(*fargs, **fkw_h),
+             lambda: FH.render_megakernel_hybrid_twin(*fargs, **fkw_h)),
+            ("mxu", lambda: FM.render_megakernel_mxu(ft, **mkw),
+             lambda: FM.render_megakernel_mxu_twin(ft, **mkw)),
+            ("stream", lambda: FS.render_megakernel_stream(st, **mkw),
+             lambda: FS.render_megakernel_stream_twin(st, **mkw))):
+        tw0 = cuda_ms(twin, 2)
+        new_ms[name] = (cuda_ms(kern, 20), (tw0 + cuda_ms(twin, 2)) / 2)
     phase("timing", card=smi, **{f"ms_per_frame_{k}": "/".join(f"{x:.3f}" for x in v)
                                  for k, v in frame_ms.items()})
     phase("timing", frame_kernel_ms=f"{t_k:.4f}", frame_twin_ms=f"{t_t:.3f}",
           composite_ms=f"{c_k:.4f}", composite_twin_ms=f"{c_t:.4f}",
           raster_pass_ms=f"{r_k:.4f}", raster_pass_twin_ms=f"{r_t:.3f}",
-          shade_stack_ms=f"{sh_k:.4f}", shade_stack_twin_ms=f"{sh_t:.3f}")
+          shade_stack_ms=f"{sh_k:.4f}", shade_stack_twin_ms=f"{sh_t:.3f}",
+          **{f"{k}_{w}ms": f"{v[i]:.4f}" for k, v in new_ms.items()
+             for i, w in ((0, ""), (1, "twin_"))})
 
     # bounds from this run's inputs: the bytes each function must move (each
     # input value it needs read once, each output written once) and the
@@ -409,6 +473,16 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     frame_pairs = int(ft.counts.sum())  # one row per pair
     b_frame = bound(frame_pairs * FG.ROW_W * 4 + nbytes(ft.starts, ft.counts, *shade_tabs, o_k),
                     frame_pairs * FG.TILE_H * FG.TILE_W * walk_ops + 2 * p * SHADE_OPS)
+    # the hybrid kernel: the frame kernel's inputs, work and output
+    b_hybrid = b_frame
+    # the mxu kernel: the same rows in, the planar 24-channel stack out
+    b_mxu = bound(frame_pairs * FG.ROW_W * 4 + nbytes(ft.starts, ft.counts)
+                  + 2 * SG.L_CH * p * 4,
+                  frame_pairs * FG.TILE_H * FG.TILE_W * (s * MXU_SAMPLE_OPS + 4))
+    # the stream kernel: its rows and bounds in, the 147-channel raw state out
+    stream_pairs = int(st.bounds[7].max())
+    b_stream = bound(stream_pairs * FG.ROW_W * 4 + nbytes(st.bounds, raw_k),
+                     stream_pairs * FG.TILE_H * FG.TILE_W * walk_ops)
     # a half-res layer needs its footprint planes (O_DXDY, O_FX, O_FY) on
     # even rows only (its even columns share those rows' memory sectors)
     half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
@@ -445,7 +519,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     phase("bounds", raster_touched_band_frac=touched_frac, shade_present_tiles=present,
           tiles=dims.b, **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
               ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
-              ("shade_stack", b_shade))})
+              ("shade_stack", b_shade), ("hybrid", b_hybrid), ("mxu", b_mxu),
+              ("stream", b_stream))})
 
     # 6. each path's step at a small size on the GPU against the CPU (twins)
     scam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
@@ -502,6 +577,17 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
          "ms": sh_k, "plain_ms": sh_t, "bound_ms": b_shade[0], "bound_by": b_shade[1],
          "library_ms": None},
     ]
+    for name, source, replaces, b_new in (
+            ("stream", "frame_stream.cu", "frame_stream.py:482", b_stream),
+            ("mxu", "frame_mxu.cu", "frame_mxu.py:359", b_mxu),
+            ("hybrid", "frame_hybrid.cu", "frame_hybrid.py:403", b_hybrid)):
+        kernels.append(
+            {"name": f"{name}_megakernel", "route": "cuda",
+             "source": f"reze_tpu_torch/kernels/csrc/{source}",
+             "replaces": f"reze_tpu/kernels/{replaces}",
+             "launches": launches[name][name], "max_abs_err": exact_err[name],
+             "ms": new_ms[name][0], "plain_ms": new_ms[name][1], "bound_ms": b_new[0],
+             "bound_by": b_new[1], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -28,34 +28,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "shade.cuh"
+#include "frame_common.cuh"
 
 namespace reze {
 namespace {
 
-constexpr int TILE_H = 8;
-constexpr int TILE_W = 128;
-constexpr int NPIX = TILE_H * TILE_W;  // threads per block, one per pixel
-constexpr int CHUNK = 128;
 constexpr int GROUP = 32;
-constexpr int ROW_W = 40;
-constexpr int N_PASSES = 7;
-constexpr int C_Z = 9, C_ALPHA = 14, C_IGRAD = 15, C_ATTR = 19;
 constexpr int G_UIW = 0, G_Z = 6, G_ALPHA = 7, G_CH = 8;
-
-__constant__ float SAMPLE_DX[4] = {-2.f / 16.f, 6.f / 16.f, -6.f / 16.f, 2.f / 16.f};
-__constant__ float SAMPLE_DY[4] = {-6.f / 16.f, -2.f / 16.f, 2.f / 16.f, 6.f / 16.f};
-
-// per pass: outline, depth write, write stencil, use stencil
-__constant__ int PASS_CFG[N_PASSES][4] = {
-    {0, 1, 0, 0},  // opaque
-    {0, 1, 1, 0},  // eyes (stencil := 1)
-    {1, 1, 0, 0},  // opaque outlines
-    {0, 1, 0, 1},  // hair (alpha halved over the stencil)
-    {1, 0, 0, 0},  // hair outlines (no depth write)
-    {0, 1, 0, 0},  // transparent
-    {1, 1, 0, 0},  // transparent outlines
-};
 
 struct FrameArgs {
   const float* rows;
@@ -193,73 +172,16 @@ __global__ void __launch_bounds__(NPIX, 1) frame_kernel(FrameArgs a) {
     float cover = 0.f;
     for (int s = 0; s < NS; ++s) cover = cover + won[s * NPIX + tid];
     cover = cover * (float)(1.0 / NS);
-    const bool hit = gbuf[G_Z * NPIX + tid] < 2.f;
-    const int code = (int)rintf(gbuf[G_ALPHA * NPIX + tid]);
-    float al = (float)(code & 1023) * (float)(1.0 / 1023.0);
-    const int rest = code >> 10;
-    const float hair = (float)((rest >> 12) & 1);
-    if (PASS_CFG[p][3]) al = al * ((stencil[tid] > 0.5f && hair > 0.5f) ? 0.5f : 1.f);
-    float a_eff = al * cover;
-    const bool present = hit && a_eff >= (float)0.001;
-    if (!present) a_eff = 0.f;
-    const bool opaque = present && a_eff > (float)0.999;
-    const bool displace = present && !opaque && stack[(L_CH + L_AEFF) * NPIX + tid] > 0.f;
-    for (int ch = 0; ch < L_CH; ++ch) {
-      float* l0 = stack + ch * NPIX + tid;
-      if (opaque) *l0 = 0.f;
-      else if (displace) *l0 = stack[(L_CH + ch) * NPIX + tid];
-    }
-    if (present) {
-      float* l1 = stack + L_CH * NPIX + tid;
-      for (int ch = 0; ch < 7; ++ch) l1[ch * NPIX] = gbuf[ch * NPIX + tid];  // attrs, z
-      l1[L_AEFF * NPIX] = a_eff;
-      l1[L_OUT * NPIX] = outline ? 1.f : 0.f;
-      l1[L_RAMP * NPIX] = (float)(rest & 15);
-      l1[L_TEX * NPIX] = (float)((rest >> 4) & 15);
-      l1[L_EDGE * NPIX] = (float)((rest >> 8) & 15);
-    }
-    if (PASS_CFG[p][2] && hit && cover > 0.f) stencil[tid] = 1.f;
+    float attrs[6];
+    for (int ch = 0; ch < 6; ++ch) attrs[ch] = gbuf[(G_UIW + ch) * NPIX + tid];
+    const float gz = gbuf[G_Z * NPIX + tid];
+    push_winner(stack, tid, stencil[tid], gz < 2.f, cover, gbuf[G_ALPHA * NPIX + tid], attrs,
+                gz, p);
   }
 
-  // shade both layers in place
-  const size_t plane = (size_t)a.sp.hp * a.sp.wp;
-  const size_t pix = (size_t)(bi * TILE_H + py) * a.sp.wp + bj * TILE_W + px;
-  const float xg = ((float)px + x0f) + 0.5f, yg = ((float)py + y0f) + 0.5f;
-  float* su = gbuf;  // the G-buffer is free now: neighbour exchange of u, v
-  float* sv = gbuf + NPIX;
-  for (int layer = 0; layer < 2; ++layer) {
-    float stk[L_CH];
-    for (int ch = 0; ch < L_CH; ++ch) stk[ch] = stack[(layer * L_CH + ch) * NPIX + tid];
-    float* out = a.out + (size_t)layer * O_CH * plane + pix;
-    const int any_present = __syncthreads_or(stk[L_AEFF] > 0.f);
-    out[O_AEFF * plane] = stk[L_AEFF];
-    if (!any_present) {
-      for (int ch = 0; ch < O_AEFF; ++ch) out[ch * plane] = ch == O_TEX ? -1.f : 0.f;
-      continue;
-    }
-    const float iw = fmaxf(stk[L_IW], (float)1e-8);
-    const float inv_iw = 1.f / iw;
-    const float u = stk[L_UIW] * inv_iw;
-    const float v = stk[L_VIW] * inv_iw;
-    float du_x = 0.f, du_y = 0.f, dv_x = 0.f, dv_y = 0.f;
-    if (a.sp.n_levels > 0) {
-      // in-tile differences, wrapping at the tile edges
-      su[tid] = u;
-      sv[tid] = v;
-      __syncthreads();
-      const int right = py * TILE_W + ((px + 1) % TILE_W);
-      const int left = py * TILE_W + ((px + TILE_W - 1) % TILE_W);
-      const int down = ((py + 1) % TILE_H) * TILE_W + px;
-      const int up = ((py + TILE_H - 1) % TILE_H) * TILE_W + px;
-      du_x = tile_fd(u, su[right], su[left]);
-      du_y = tile_fd(u, su[down], su[up]);
-      dv_x = tile_fd(v, sv[right], sv[left]);
-      dv_y = tile_fd(v, sv[down], sv[up]);
-    }
-    float res[O_AEFF];
-    shade_pixel(stk, u, v, inv_iw, du_x, du_y, dv_x, dv_y, xg, yg, layer, a.sp, res);
-    for (int ch = 0; ch < O_AEFF; ++ch) out[ch * plane] = res[ch];
-  }
+  // shade both layers in place; the G-buffer is free now (its first two
+  // channels hold the neighbour exchange of u, v)
+  shade_tile(stack, gbuf, gbuf + NPIX, tid, bi, bj, a.sp, a.out);
 }
 
 template <int NS, bool ANALYTIC>

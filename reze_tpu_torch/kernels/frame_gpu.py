@@ -40,6 +40,7 @@ TILE_H = 8
 TILE_W = 128
 CHUNK = 128  # pairs staged per step (the pack pads the rows to a multiple)
 GROUP = 32  # pairs resolved together (see the module docstring)
+SUB = 32  # lanes the other twins evaluate at once (memory only; no semantic)
 
 # pair-row columns; only 0:37 are used, the row is padded to 40 floats
 # 0:9   ea0 eb0 ec0 ea1 eb1 ec1 ea2 eb2 ec2   edge planes, pre-divided
@@ -217,20 +218,10 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
             analytic=analytic)
     if analytic:
         n_samples = 1
-    if hp % TILE_H or wp % TILE_W or not 1 <= n_samples <= len(SAMPLE_OFFSETS):
-        raise ValueError(f"bad frame shape/samples: {hp}x{wp}, {n_samples}")
-    b_total = (hp // TILE_H) * (wp // TILE_W)
+    check_frame_tables(tables, hp, wp, n_samples)
     dev = tables.rows.device
     lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    if (tables.rows.dtype != torch.float32 or not tables.rows.is_contiguous()
-            or tables.rows.shape[1] != ROW_W):
-        raise ValueError(f"rows: need a contiguous float32 (N, {ROW_W}) tensor, got "
-                         f"{tables.rows.dtype} {tuple(tables.rows.shape)}")
     SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
-    for name, t in (("starts", tables.starts), ("counts", tables.counts)):
-        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
-                or tuple(t.shape) != (N_PASSES, b_total)):
-            raise ValueError(f"{name}: need contiguous int32 ({N_PASSES}, {b_total}) on {dev}")
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
     out = torch.empty((2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
@@ -251,11 +242,110 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
 render_megakernel.launches = 0
 
 
+def check_rows(rows: Tensor, hp: int, wp: int, n_samples: int) -> None:
+    """Raise unless the frame shape, the sample count and the pair rows are
+    what the megakernels take."""
+    if hp % TILE_H or wp % TILE_W or not 1 <= n_samples <= len(SAMPLE_OFFSETS):
+        raise ValueError(f"bad frame shape/samples: {hp}x{wp}, {n_samples}")
+    if (rows.dtype != torch.float32 or not rows.is_contiguous() or rows.dim() != 2
+            or rows.shape[1] != ROW_W):
+        raise ValueError(f"rows: need a contiguous float32 (N, {ROW_W}) tensor, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+
+
+def check_frame_tables(tables: FrameTables, hp: int, wp: int, n_samples: int) -> None:
+    """Raise unless ``tables`` and the frame shape are what the kernels that
+    walk :class:`FrameTables` take."""
+    check_rows(tables.rows, hp, wp, n_samples)
+    b_total = (hp // TILE_H) * (wp // TILE_W)
+    dev = tables.rows.device
+    for name, t in (("starts", tables.starts), ("counts", tables.counts)):
+        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
+                or tuple(t.shape) != (N_PASSES, b_total)):
+            raise ValueError(f"{name}: need contiguous int32 ({N_PASSES}, {b_total}) on {dev}")
+
+
 def _tiles_to_frame(x: Tensor, by: int, bx: int) -> Tensor:
     """(..., B, 8, 128) tiles -> (..., hp, wp)."""
     lead = x.shape[:-3]
     x = x.reshape(lead + (by, bx, TILE_H, TILE_W)).transpose(-3, -2)
     return x.reshape(lead + (by * TILE_H, bx * TILE_W))
+
+
+def tile_coords(b_total: int, bx: int, dev):
+    """-> (x0, y0) tile origins (B, 1) and the tile-local pixel centres
+    xs (128,), ys (8, 1), all float32."""
+    f32 = torch.float32
+    tile = torch.arange(b_total, device=dev)
+    x0f = ((tile % bx) * TILE_W).to(f32)[:, None]
+    y0f = ((tile // bx) * TILE_H).to(f32)[:, None]
+    xs = torch.arange(TILE_W, device=dev, dtype=f32) + 0.5
+    ys = torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + 0.5
+    return x0f, y0f, xs, ys
+
+
+def shade_frame(stack: list[Tensor], shade_tables: SG.ShadeTables, lights, lcol: Tensor,
+                misc: Tensor, inv_vp: Tensor, x0f: Tensor, y0f: Tensor, hp: int, wp: int,
+                use_mips: bool) -> Tensor:
+    """Shade both layers of a tiled (B, 8, 128) stack after the last pass
+    -> (2*O_CH, hp, wp)."""
+    f32 = torch.float32
+    dev = x0f.device
+    b_total = x0f.shape[0]
+    xs = (torch.arange(TILE_W, device=dev, dtype=f32) + x0f[:, :, None]) + 0.5
+    ys = (torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + y0f[:, :, None]) + 0.5
+    xs = xs.expand(b_total, TILE_H, TILE_W)
+    ys = ys.expand(b_total, TILE_H, TILE_W)
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    out = SG.shade_tiles(stack, shade_tables, lights, lcol, misc, inv_vp, xs, ys, wp, hp,
+                         n_levels)
+    return _tiles_to_frame(torch.stack(out), hp // TILE_H, wp // TILE_W)
+
+
+def pix(v: Tensor) -> Tensor:
+    """(B, L) per-pair value -> (B, L, 1, 1), against (8, 128) pixels."""
+    return v[..., None, None]
+
+
+def gather_rows(rows: Tensor, idx: Tensor, cols) -> list[Tensor]:
+    """Columns ``cols`` of row ``idx`` per pixel (0 where ``idx < 0``)."""
+    sel = rows[:, list(cols)]
+    vals = sel[torch.clamp(idx, min=0)]
+    vals = torch.where((idx >= 0)[..., None], vals, 0.0)
+    return list(vals.unbind(-1))
+
+
+def push_pass(stack: list[Tensor], stencil: Tensor, hit: Tensor, cover: Tensor,
+              code_f: Tensor, attrs: list[Tensor], z: Tensor, *, outline: bool,
+              use_stencil: bool, write_stencil: bool) -> Tensor:
+    """Push one pass's winners onto the two-layer stack (2*L_CH tensors,
+    updated in place) -> the new stencil. ``code_f`` is the winner's packed
+    material code, ``attrs`` its six attribute values and ``z`` its depth:
+    opaque fragments clear the stack, translucent ones displace layer 1,
+    ``a_eff < 0.001`` is dropped, hair alpha halves over the stencil."""
+    f32 = torch.float32
+    code = torch.round(code_f).to(torch.int32)
+    a = (code & 1023).to(f32) * (1.0 / 1023.0)
+    rest = code >> 10
+    if use_stencil:
+        hair = ((rest >> 12) & 1).to(f32)
+        a = a * torch.where((stencil > 0.5) & (hair > 0.5), 0.5, 1.0)
+    a_eff = torch.where(hit, a * cover, 0.0)
+    present = a_eff >= 0.001
+    a_eff = torch.where(present, a_eff, 0.0)
+    opaque = present & (a_eff > 0.999)
+    displace = present & ~opaque & (stack[SG.L_CH + SG.L_AEFF] > 0.0)
+    for ch in range(SG.L_CH):
+        stack[ch] = torch.where(opaque, 0.0,
+                                torch.where(displace, stack[SG.L_CH + ch], stack[ch]))
+    frag = list(attrs) + [z, a_eff, torch.full_like(a_eff, 1.0 if outline else 0.0),
+                          (rest & 15).to(f32), ((rest >> 4) & 15).to(f32),
+                          ((rest >> 8) & 15).to(f32)]
+    for ch in range(SG.L_CH):
+        stack[SG.L_CH + ch] = torch.where(present, frag[ch], stack[SG.L_CH + ch])
+    if write_stencil:
+        stencil = torch.where(hit & (cover > 0.0), 1.0, stencil)
+    return stencil
 
 
 def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
@@ -273,11 +363,7 @@ def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, li
     dev = tables.rows.device
     f32 = torch.float32
     lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    tile = torch.arange(b_total, device=dev)
-    x0f = ((tile % bx) * TILE_W).to(f32)[:, None]  # (B, 1)
-    y0f = ((tile // bx) * TILE_H).to(f32)[:, None]
-    xs8 = torch.arange(TILE_W, device=dev, dtype=f32) + 0.5  # tile-local
-    ys8 = torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + 0.5
+    x0f, y0f, xs8, ys8 = tile_coords(b_total, bx, dev)  # tile-local centres
     jj = torch.arange(GROUP, device=dev)
 
     zbuf = torch.ones((n_samples, b_total, TILE_H, TILE_W), device=dev)
@@ -367,38 +453,9 @@ def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, li
         for s in range(n_samples):
             cover = cover + won[s]
         cover = cover * (1.0 / n_samples)
-        hit = gbuf[G_Z] < 2.0
-        code = torch.round(gbuf[G_ALPHA]).to(torch.int32)
-        a = (code & 1023).to(f32) * (1.0 / 1023.0)
-        rest = code >> 10
-        ramp_g = (rest & 15).to(f32)
-        tex_g = ((rest >> 4) & 15).to(f32)
-        edge_g = ((rest >> 8) & 15).to(f32)
-        hair_g = ((rest >> 12) & 1).to(f32)
-        if use_stencil:
-            a = a * torch.where((stencil > 0.5) & (hair_g > 0.5), 0.5, 1.0)
-        a_eff = a * cover
-        present = hit & (a_eff >= 0.001)
-        a_eff = torch.where(present, a_eff, 0.0)
-        opaque = present & (a_eff > 0.999)
-        displace = present & ~opaque & (stack[SG.L_CH + SG.L_AEFF] > 0.0)
-        for ch in range(SG.L_CH):
-            stack[ch] = torch.where(opaque, 0.0,
-                                    torch.where(displace, stack[SG.L_CH + ch], stack[ch]))
-        frag = [gbuf[G_UIW], gbuf[G_VIW], gbuf[G_NXIW], gbuf[G_NYIW], gbuf[G_NZIW],
-                gbuf[G_IW], gbuf[G_Z], a_eff,
-                torch.full_like(a_eff, 1.0 if outline else 0.0), ramp_g, tex_g, edge_g]
-        for ch in range(SG.L_CH):
-            stack[SG.L_CH + ch] = torch.where(present, frag[ch], stack[SG.L_CH + ch])
-        if write_stencil:
-            stencil = torch.where(hit & (cover > 0.0), 1.0, stencil)
+        stencil = push_pass(stack, stencil, gbuf[G_Z] < 2.0, cover, gbuf[G_ALPHA],
+                            gbuf[G_UIW:G_UIW + 6], gbuf[G_Z], outline=outline,
+                            use_stencil=use_stencil, write_stencil=write_stencil)
 
-    # shade both layers of every tile
-    xs =(torch.arange(TILE_W, device=dev, dtype=f32) + x0f[:, :, None]) + 0.5
-    ys = (torch.arange(TILE_H, device=dev, dtype=f32)[:, None] + y0f[:, :, None]) + 0.5
-    xs = xs.expand(b_total, TILE_H, TILE_W)
-    ys = ys.expand(b_total, TILE_H, TILE_W)
-    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
-    out = SG.shade_tiles(stack, shade_tables, lights, lcol, misc, inv_vp, xs, ys, wp, hp,
-                         n_levels)
-    return _tiles_to_frame(torch.stack(out), by, bx)
+    return shade_frame(stack, shade_tables, lights, lcol, misc, inv_vp, x0f, y0f, hp, wp,
+                       use_mips)

@@ -1,0 +1,278 @@
+"""The stream frame megakernel: one merged walk of all seven passes' pairs
+per tile, emitting raw per-pass winners (counterpart of
+``reze_tpu/kernels/frame_stream.py``), its pair pack and the compose of
+the raw state into the two-layer stack.
+
+* :func:`pack_stream` merges the passes' pairs (``frame_gpu.
+  pack_pass_part``) under one sort by (tile, pass, draw order): a tile's
+  pairs of all passes are contiguous, ``bounds[p, b]`` is the first row of
+  (tile b, pass p) and ``bounds[7, b]`` the end of tile b. Rows keep the
+  frame kernel's 40-wide layout.
+* :func:`render_megakernel_stream` walks each tile's rows in 128-pair
+  windows aligned to the global row index, from ``floor(bounds[0, b] /
+  128) * 128``, and the passes in order inside each window: a group is
+  (window, pass segment), tested against the depth buffer as it stood
+  before the group, so pass p + 1 sees pass p's depth in the same window.
+  Planes are raw, constants at the tile origin, evaluated at tile-local
+  pixel centres as ``(a*x + b*y) + c``; sample s passes where each edge
+  ``E_c >= -(a*dx + b*dy)`` and ``z_s = z_c + (za*dx + zb*dy)`` is
+  ``<= depth``, ``>= 0`` and ``<= 1``. The winner key is ``clip(z_c *
+  2^17) << 14 | (16383 - clip(g - b0))`` (``g`` the pair's row, ``b0`` the
+  pass segment's first row), the minimum over pairs that passed a sample;
+  the winner's row is recorded in the window where the key strictly
+  improves and lies in it. Output, planar (S_OUT, hp, wp): per pass the
+  key (int32 bits in float32), the summed sample coverage and the
+  winner's 19 fragment values [code, a0..a5, b0..b5, c0..c5]; a pass no
+  pair passed keeps the key ``SENTINEL`` and zeros.
+* :func:`compose_stream_state` (plain torch) is the closed form of the
+  per-pass push over the raw state -> the planar stack (2*L_CH, hp, wp).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..render.raster import SAMPLE_OFFSETS
+from . import cuda_lib
+from . import frame_gpu as FG
+from . import shade_gpu as SG
+
+Tensor = torch.Tensor
+
+TILE_H, TILE_W = FG.TILE_H, FG.TILE_W
+N_PASSES = FG.N_PASSES
+WINDOW = 128  # row-aligned pair windows
+ZQ = float(1 << 17)  # depth quantisation of the winner key
+IDB = 1 << 14  # id bits of the winner key
+SENTINEL = 2 ** 31 - 1
+
+N_FRAG = 19  # [code, a0..5, b0..5, c0..5]
+FRAG_COLS = [FG.C_ALPHA] + list(range(FG.C_ATTR, FG.C_ATTR + 18))
+# raw output channels
+O_BEST = 0  # 7 winner keys
+O_COVER = O_BEST + N_PASSES  # 7 summed sample coverages (0..n_samples)
+O_FRAG = O_COVER + N_PASSES  # 7 x 19 fragment values
+S_OUT = O_FRAG + N_PASSES * N_FRAG  # 147
+
+
+class StreamTables(NamedTuple):
+    rows: Tensor  # (CAP + 128, ROW_W) f32 pair rows in (tile, pass, draw) order
+    bounds: Tensor  # (8, B) int32: [p, b] first row of (tile b, pass p); [7, b] its end
+    overflow: Tensor  # () int64 pairs dropped at the capacity
+
+
+def pack_stream(parts, by: int, bx: int) -> StreamTables:
+    """Merge the passes' pair enumerations (``frame_gpu.pack_pass_part``'s
+    (tab, bin_id, ok, tri_of_k, total) per pass) into one stream sorted by
+    (tile, pass, draw order). Dropped pairs sort last and gather zero rows."""
+    assert len(parts) == N_PASSES
+    b_total = by * bx
+    dev = parts[0][0].device
+    dead = (b_total * 8) << 32
+    keys, offs = [], []
+    off = 0
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
+        keys.append(torch.where(ok, ((bin_id * 8 + p) << 32) + tri_of_k, dead))
+        offs.append(off)
+        off += tab.shape[0]
+        overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
+    tab_all = torch.cat([pp[0] for pp in parts])
+    key, _ = torch.sort(torch.cat(keys))
+    cap = key.shape[0]
+    sk = key >> 32  # tile * 8 + pass
+    live = sk < b_total * 8
+    pass_of = torch.where(live, sk & 7, 0)
+    offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
+    row_idx = torch.where(live, offs_t[pass_of] + (key & 0xFFFFFFFF), 0)
+    rows = torch.where(live[:, None], tab_all[row_idx], 0.0)
+    counts_q = torch.bincount(sk[live], minlength=b_total * 8)
+    bounds = torch.clamp(torch.cumsum(counts_q, 0) - counts_q, max=cap)
+    rows = torch.cat([rows, torch.zeros((WINDOW, FG.ROW_W), device=dev)])
+    return StreamTables(rows=rows.contiguous(),
+                        bounds=bounds.reshape(b_total, 8).T.to(torch.int32).contiguous(),
+                        overflow=overflow)
+
+
+def render_megakernel_stream(tables: StreamTables, *, hp: int, wp: int,
+                             n_samples: int) -> Tensor:
+    """-> raw per-pass winner state (S_OUT, hp, wp).
+
+    CUDA tensors launch ``csrc/frame_stream.cu``; CPU tensors run
+    :func:`render_megakernel_stream_twin`."""
+    if not tables.rows.is_cuda:
+        return render_megakernel_stream_twin(tables, hp=hp, wp=wp, n_samples=n_samples)
+    FG.check_rows(tables.rows, hp, wp, n_samples)
+    b_total = (hp // TILE_H) * (wp // TILE_W)
+    dev = tables.rows.device
+    rows, bounds = tables.rows, tables.bounds
+    if (bounds.device != dev or bounds.dtype != torch.int32 or not bounds.is_contiguous()
+            or tuple(bounds.shape) != (8, b_total)):
+        raise ValueError(f"bounds: need contiguous int32 (8, {b_total}) on {dev}")
+    out = torch.empty((S_OUT, hp, wp), dtype=torch.float32, device=dev)
+    err = cuda_lib.library().reze_frame_stream(
+        rows.data_ptr(), bounds.data_ptr(), out.data_ptr(), hp, wp, n_samples,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "reze_frame_stream")
+    render_megakernel_stream.launches += 1
+    return out
+
+
+render_megakernel_stream.launches = 0
+
+
+def render_megakernel_stream_twin(tables: StreamTables, *, hp: int, wp: int,
+                                  n_samples: int) -> Tensor:
+    """Plain torch version of :func:`render_megakernel_stream`: all tiles
+    at once, one (window, pass) group per step (its pairs evaluated
+    ``frame_gpu.SUB`` at a time), the same float and integer operations in
+    the same order."""
+    f32, i32 = torch.float32, torch.int32
+    by, bx = hp // TILE_H, wp // TILE_W
+    b_total = by * bx
+    dev = tables.rows.device
+    x0f, y0f, xs, ys = FG.tile_coords(b_total, bx, dev)
+    jj = torch.arange(FG.SUB, device=dev)
+    shape = (b_total, TILE_H, TILE_W)
+    rows = tables.rows
+    n_rows = rows.shape[0]
+    bounds = tables.bounds.to(torch.int64)
+    t0, t1 = bounds[0], bounds[7]
+    astart = torch.div(t0, WINDOW, rounding_mode="floor") * WINDOW
+    n_win = torch.where(t1 > t0, -torch.div(astart - t1, WINDOW, rounding_mode="floor"), 0)
+    zbuf = torch.ones((n_samples,) + shape, device=dev)
+    keys = torch.full((N_PASSES,) + shape, SENTINEL, dtype=i32, device=dev)
+    idx = torch.full((N_PASSES,) + shape, -1, dtype=torch.int64, device=dev)
+    won = torch.zeros((N_PASSES, n_samples) + shape, dtype=torch.bool, device=dev)
+    pix = FG.pix
+
+    for ci in range(int(n_win.max()) if b_total else 0):
+        wb = astart + ci * WINDOW  # (B,) first row of the tile's window
+        for p in range(N_PASSES):
+            b0, b1 = bounds[p], bounds[p + 1]
+            lo = torch.maximum(b0, wb)
+            n_g = torch.clamp(torch.minimum(b1, wb + WINDOW) - lo, min=0)
+            top = int(n_g.max())
+            if top == 0:
+                continue
+            zmin = torch.full((n_samples,) + shape, 2.0, device=dev)
+            kmin = torch.full(shape, SENTINEL, dtype=i32, device=dev)
+            for l0 in range(0, top, FG.SUB):
+                k = l0 + jj
+                valid = pix(k[None, :] < n_g[:, None])  # (B, SUB, 1, 1)
+                g = lo[:, None] + k[None, :]  # (B, SUB) row index
+                r = rows[torch.clamp(g, max=n_rows - 1)]
+                a = [r[..., 3 * e] for e in range(4)]  # edges 0-2, depth (cols 9:12)
+                b = [r[..., 3 * e + 1] for e in range(4)]
+                c = [r[..., 3 * e + 2] + (a[e] * x0f + b[e] * y0f) for e in range(4)]
+                ec = [(pix(a[e]) * xs + pix(b[e]) * ys) + pix(c[e]) for e in range(4)]
+                any_pass = torch.zeros_like(valid)
+                for s in range(n_samples):
+                    dx, dy = SAMPLE_OFFSETS[s]
+                    o = [a[e] * dx + b[e] * dy for e in range(4)]
+                    zs = ec[3] + pix(o[3])
+                    passed = ((ec[0] >= pix(-o[0])) & (ec[1] >= pix(-o[1]))
+                              & (ec[2] >= pix(-o[2])) & valid
+                              & (zs <= zbuf[s][:, None]) & (zs >= 0.0) & (zs <= 1.0))
+                    zmin[s] = torch.minimum(zmin[s], torch.where(passed, zs, 2.0).amin(1))
+                    any_pass = any_pass | passed
+                zq = torch.clamp(ec[3] * ZQ, 0.0, ZQ - 1.0).to(i32)
+                seg = torch.clamp(g - b0[:, None], 0, IDB - 1)
+                key = (zq << 14) | pix((IDB - 1 - seg).to(i32))
+                key = torch.where(any_pass, key, SENTINEL)
+                kmin = torch.minimum(kmin, key.amin(1))
+            for s in range(n_samples):
+                if FG.PASS_CFG[p][1]:
+                    zbuf[s] = torch.minimum(zbuf[s], zmin[s])
+                won[p, s] |= zmin[s] < 2.0
+            nb = torch.minimum(keys[p], kmin)
+            win_id = (IDB - 1) - (nb & (IDB - 1))
+            local = win_id.to(torch.int64) + (b0 - wb)[:, None, None]
+            sel = (nb < keys[p]) & (nb < SENTINEL) & (local >= 0) & (local < WINDOW)
+            idx[p] = torch.where(sel, wb[:, None, None] + local, idx[p])
+            keys[p] = nb
+
+    out = [keys[p].view(f32) for p in range(N_PASSES)]
+    for p in range(N_PASSES):
+        cover = won[p, 0].to(f32)
+        for s in range(1, n_samples):
+            cover = cover + won[p, s].to(f32)
+        out.append(cover)
+    for p in range(N_PASSES):
+        out += FG.gather_rows(rows, idx[p], FRAG_COLS)
+    return FG._tiles_to_frame(torch.stack(out), by, bx)
+
+
+def compose_stream_state(raw: Tensor, n_samples: int) -> Tensor:
+    """Raw per-pass winner state (S_OUT, hp, wp) -> the planar two-layer
+    stack (2*L_CH, hp, wp).
+
+    The closed form of the per-pass push: layer 1 is the last present
+    fragment in pass order, layer 0 the one before it unless layer 1 is
+    opaque; the eye pass's coverage is the stencil that halves hair
+    alpha; ``a_eff < 0.001`` is absent."""
+    f32 = torch.float32
+    _, hp, wp = raw.shape
+    dev = raw.device
+    inv_s = 1.0 / n_samples
+    best = [raw[O_BEST + p].contiguous().view(torch.int32) for p in range(N_PASSES)]
+    cover = [raw[O_COVER + p] * inv_s for p in range(N_PASSES)]
+    code = [torch.round(raw[O_FRAG + p * N_FRAG]).to(torch.int32) for p in range(N_PASSES)]
+
+    stencil = (best[1] < SENTINEL) & (cover[1] > 0.0)
+    present, opaque, a_eff, z = [], [], [], []
+    for p, (_, _, _, use_stencil) in enumerate(FG.PASS_CFG):
+        hit = best[p] < SENTINEL
+        a = (code[p] & 1023).to(f32) * (1.0 / 1023.0)
+        if use_stencil:
+            hair = ((code[p] >> 22) & 1).to(f32)
+            a = a * torch.where(stencil & (hair > 0.5), 0.5, 1.0)
+        ae = torch.where(hit, a * cover[p], 0.0)
+        pres = ae >= 0.001
+        present.append(pres)
+        opaque.append(pres & (ae > 0.999))
+        a_eff.append(torch.where(pres, ae, 0.0))
+        z.append((best[p] >> 14).to(f32) * (1.0 / ZQ))
+
+    # take1: the last present pass; take2: the present pass before it
+    take1, take2 = [None] * N_PASSES, [None] * N_PASSES
+    seen1 = torch.zeros_like(present[0])
+    seen2 = torch.zeros_like(present[0])
+    for p in range(N_PASSES - 1, -1, -1):
+        t1 = present[p] & ~seen1
+        seen1 = seen1 | present[p]
+        t2 = present[p] & seen1 & ~t1 & ~seen2
+        seen2 = seen2 | t2
+        take1[p], take2[p] = t1, t2
+    l1_opaque = torch.zeros_like(present[0])
+    for p in range(N_PASSES):
+        l1_opaque = l1_opaque | (take1[p] & opaque[p])
+
+    px = torch.arange(wp, dtype=f32, device=dev)[None, :] + 0.5
+    py = torch.arange(hp, dtype=f32, device=dev)[:, None] + 0.5
+
+    def layer(select, alive):
+        zero = torch.zeros((hp, wp), device=dev)
+        ch = [zero] * SG.L_CH
+        for p, (is_out, _, _, _) in enumerate(FG.PASS_CFG):
+            selp = (select[p] & alive).to(f32)
+            ch[SG.L_AEFF] = ch[SG.L_AEFF] + selp * a_eff[p]
+            ch[SG.L_Z] = ch[SG.L_Z] + selp * z[p]
+            rest = code[p] >> 10
+            ch[SG.L_RAMP] = ch[SG.L_RAMP] + selp * (rest & 15).to(f32)
+            ch[SG.L_TEX] = ch[SG.L_TEX] + selp * ((rest >> 4) & 15).to(f32)
+            ch[SG.L_EDGE] = ch[SG.L_EDGE] + selp * ((rest >> 8) & 15).to(f32)
+            if is_out:
+                ch[SG.L_OUT] = ch[SG.L_OUT] + selp
+            else:
+                fb = O_FRAG + p * N_FRAG
+                for c in range(6):
+                    val = (raw[fb + 1 + c] * px + raw[fb + 7 + c] * py) + raw[fb + 13 + c]
+                    ch[SG.L_UIW + c] = ch[SG.L_UIW + c] + selp * val
+        return torch.stack(ch)
+
+    l1 = layer(take1, torch.ones_like(present[0]))
+    l0 = layer(take2, ~l1_opaque)
+    return torch.cat([l0, l1]).contiguous()

@@ -1,8 +1,12 @@
 """The frame pipelines (counterpart of ``reze_tpu/render/pipeline_tpu.py``).
 
-* :func:`render_frame_mega`, the main path (``rasterizer="group"`` with
-  nearest albedo): per-pass triangle setup and pair pack, the frame
-  megakernel, the composite kernel and the bloom finish.
+* :func:`render_frame_mega`, the megakernel path: per-pass triangle
+  setup and pair pack, then by ``cfg.rasterizer`` the frame megakernel
+  (``"group"``, the main path), the hybrid kernel (``"hybrid"``, its shade
+  inline like the frame kernel's), the mxu kernel then the stack shade
+  (``"mxu"``), or the stream kernel, the plain torch compose of its raw
+  winners and the stack shade (``"stream"``); then the composite kernel
+  and the bloom finish (nearest albedo only).
 * :func:`render_frame_fast`, the per-pass renderer: seven launches of the
   raster-pass kernel with the depth buffer carried across passes, then
   either the two-layer stack, the stack-shade kernel and the composite
@@ -24,6 +28,9 @@ from ..core.types import (CLASS_EYE, CLASS_HAIR, CLASS_OPAQUE, CLASS_TRANSPARENT
                           EngineConfig, Lights, ModelArrays, round_up)
 from ..kernels import composite_gpu as CG
 from ..kernels import frame_gpu as FG
+from ..kernels import frame_hybrid as FH
+from ..kernels import frame_mxu as FM
+from ..kernels import frame_stream as FS
 from ..kernels import raster_gpu as RG
 from ..kernels import shade_gpu as SG
 from . import post, raster
@@ -80,10 +87,11 @@ _PASS_SPECS = (
 )
 
 
-def _build_group_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
-                        tables: SG.ShadeTables, pos: Tensor, nrm: Tensor,
-                        view_proj: Tensor, uvs: Tensor | None) -> FG.FrameTables:
-    """Per-pass triangle setup + pair rows for the frame kernel."""
+def _pass_parts(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                tables: SG.ShadeTables, pos: Tensor, nrm: Tensor, view_proj: Tensor,
+                uvs: Tensor | None) -> list:
+    """Per-pass triangle setup + pair enumeration (``frame_gpu.
+    pack_pass_part``) for the megakernels' packs."""
     parts = []
     by, bx = dims.hp // FG.TILE_H, dims.wp // FG.TILE_W
     for cls, cull, outline in _PASS_SPECS:
@@ -97,7 +105,25 @@ def _build_group_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
         parts.append(FG.pack_pass_part(
             tri, data.corner_uv, data.corner_nrm, alpha, cols[:, 2], cols[:, 4],
             cols[:, 5], cols[:, 6], by, bx, cap, with_attrs=not outline))
-    return FG.pack_frame_rows(parts, by, bx)
+    return parts
+
+
+def _build_group_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                        tables: SG.ShadeTables, pos: Tensor, nrm: Tensor,
+                        view_proj: Tensor, uvs: Tensor | None) -> FG.FrameTables:
+    """Pair rows in (pass, tile, draw) order for the frame, hybrid and mxu
+    kernels."""
+    parts = _pass_parts(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
+    return FG.pack_frame_rows(parts, dims.hp // FG.TILE_H, dims.wp // FG.TILE_W)
+
+
+def _build_stream_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                         tables: SG.ShadeTables, pos: Tensor, nrm: Tensor,
+                         view_proj: Tensor, uvs: Tensor | None) -> FS.StreamTables:
+    """The same pairs merged in (tile, pass, draw) order for the stream
+    kernel."""
+    parts = _pass_parts(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
+    return FS.pack_stream(parts, dims.hp // FG.TILE_H, dims.wp // FG.TILE_W)
 
 
 def _apply_mat_mod(tables: SG.ShadeTables, mat_mod) -> SG.ShadeTables:
@@ -136,25 +162,45 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
                       lights: Lights, uvs: Tensor | None = None, mat_mod=None,
                       shade_tables: SG.ShadeTables | None = None
                       ) -> tuple[Tensor, Tensor]:
-    """One frame through the megakernel -> (frame (H, W, 3), pair_overflow)."""
-    if cfg.rasterizer != "group" or cfg.albedo_bilinear:
+    """One frame through the megakernel that ``cfg.rasterizer`` names, as
+    the reference routes it -> (frame (H, W, 3), pair_overflow). The
+    stream and mxu kernels always take ``cfg.msaa_samples`` samples; the
+    group and hybrid kernels take one in analytic mode."""
+    if cfg.albedo_bilinear:
         raise NotImplementedError(
-            "only rasterizer='group' with nearest albedo is ported "
-            "(ROADMAP queue 1: other modes)")
+            "the megakernel path with bilinear albedo needs the quad composite, which "
+            "is not ported (ROADMAP queue 1, item 7)")
     inv_vp = m3.mat4_inverse(view_proj).contiguous()
     tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
         model.materials, model.atlas)
     tables = _apply_mat_mod(tables, mat_mod)
-    ft = _build_group_tables(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
     use_mips, lod_bias = _mip_args(cfg, model)
-    analytic = cfg.msaa_mode == "analytic"
-    shaded = FG.render_megakernel(
-        ft, tables, lights, cfg.rim_light_intensity, eye_pos, inv_vp,
-        hp=dims.hp, wp=dims.wp, n_samples=1 if analytic else cfg.msaa_samples,
-        use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
+    skw = dict(use_mips=use_mips, lod_bias=lod_bias)
+    shade_args = (tables, lights, cfg.rim_light_intensity, eye_pos, inv_vp)
+    if cfg.rasterizer == "stream":
+        st = _build_stream_tables(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
+        raw = FS.render_megakernel_stream(st, hp=dims.hp, wp=dims.wp,
+                                          n_samples=cfg.msaa_samples)
+        stack = FS.compose_stream_state(raw, cfg.msaa_samples)
+        shaded = SG.shade_stack(stack, *shade_args, **skw)
+        overflow = st.overflow
+    else:
+        ft = _build_group_tables(model, cfg, dims, tables, pos, nrm, view_proj, uvs)
+        overflow = ft.overflow
+        if cfg.rasterizer == "mxu":
+            stack = FM.render_megakernel_mxu(ft, hp=dims.hp, wp=dims.wp,
+                                             n_samples=cfg.msaa_samples)
+            shaded = SG.shade_stack(stack, *shade_args, **skw)
+        else:
+            analytic = cfg.msaa_mode == "analytic"
+            mega = (FH.render_megakernel_hybrid if cfg.rasterizer == "hybrid"
+                    else FG.render_megakernel)
+            shaded = mega(ft, *shade_args, hp=dims.hp, wp=dims.wp,
+                          n_samples=1 if analytic else cfg.msaa_samples, analytic=analytic,
+                          **skw)
     flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
     img = _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg)
-    return img, ft.overflow
+    return img, overflow
 
 
 def pass_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims, pos: Tensor,

@@ -5,15 +5,18 @@
 lights, track, breath) -> (state', frame (H, W, 3))``. ``simulate`` runs
 animation sampling, breathing, tweens, bone/UV/material morphs, CCD IK,
 FK and skinning. The frame goes, as in the reference, through
-``pipeline_gpu.render_frame_mega`` (the frame megakernel and the composite
-kernel) when ``use_megakernel`` and ``layered_shading`` are both on, and
-through the per-pass renderer ``pipeline_gpu.render_frame_fast`` (the
-raster-pass kernel, then the stack-shade and composite kernels or plain
-per-pass shading) otherwise.
+``pipeline_gpu.render_frame_mega`` when ``use_megakernel`` and
+``layered_shading`` are both on: the megakernel that ``cfg.rasterizer``
+names (``"group"``: the frame megakernel; ``"hybrid"``; ``"mxu"`` or
+``"stream"``, then the stack-shade kernel), then the composite kernel.
+Otherwise it goes through the per-pass renderer
+``pipeline_gpu.render_frame_fast`` (the raster-pass kernel, then the
+stack-shade and composite kernels or plain per-pass shading), which never
+reads ``cfg.rasterizer``.
 
-Not ported yet, and refused rather than skipped: rigid-body physics, the
-XLA-oracle renderer, the stream/mxu/hybrid megakernels and bilinear albedo
-on the paths that read it (ROADMAP queue 1).
+Not ported yet, and refused rather than skipped (ROADMAP queue 1):
+rigid-body physics (item 4), bilinear albedo on the layered paths, which
+needs the quad composite (item 7), and the XLA-oracle renderer (item 8).
 """
 
 from __future__ import annotations
@@ -42,10 +45,6 @@ def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
         raise NotImplementedError(
             f"EngineConfig renderer={cfg.renderer!r} is not ported yet "
             "(ROADMAP queue 1, item 8)")
-    if _uses_megakernel(cfg) and cfg.rasterizer != "group":
-        raise NotImplementedError(
-            f"EngineConfig rasterizer={cfg.rasterizer!r} selects a megakernel that is "
-            "not ported yet (ROADMAP queue 1, items 1-3)")
     if cfg.albedo_bilinear and cfg.layered_shading:
         raise NotImplementedError(
             "EngineConfig albedo_bilinear=True needs the quad composite, which is not "

@@ -249,11 +249,10 @@ def random_pass_inputs(seed: int, n_tris: tuple[int, ...], n_groups: int = 3):
     return out
 
 
-def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
-                        device="cuda"):
-    """Frame-kernel tables (``frame_gpu.FrameTables``) for an
-    (hp, wp) frame from :func:`random_pass_inputs`, packed with the
-    engine's per-pass culling and pair capacity."""
+def _random_pass_parts(seed: int, n_tris: tuple[int, ...], hp: int, wp: int, device):
+    """Per pass, ``frame_gpu.pack_pass_part``'s output for
+    :func:`random_pass_inputs`, with the engine's per-pass culling and pair
+    capacity."""
     import torch
 
     from .kernels import frame_gpu as FG
@@ -269,7 +268,29 @@ def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
             tri, t["corner_uv"], t["corner_nrm"], t["alpha"], t["is_hair"], t["ramp"],
             t["tex"], t["edge"], hp // FG.TILE_H, wp // FG.TILE_W, cap,
             with_attrs=not outline))
+    return parts
+
+
+def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
+                        device="cuda"):
+    """Frame-kernel tables (``frame_gpu.FrameTables``) for an
+    (hp, wp) frame from :func:`random_pass_inputs`, packed with the
+    engine's per-pass culling and pair capacity."""
+    from .kernels import frame_gpu as FG
+
+    parts = _random_pass_parts(seed, n_tris, hp, wp, device)
     return FG.pack_frame_rows(parts, hp // FG.TILE_H, wp // FG.TILE_W)
+
+
+def random_stream_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
+                         device="cuda"):
+    """Stream-kernel tables (``frame_stream.StreamTables``) of the same
+    pairs as :func:`random_frame_tables` with the same arguments."""
+    from .kernels import frame_gpu as FG
+    from .kernels import frame_stream as FS
+
+    parts = _random_pass_parts(seed, n_tris, hp, wp, device)
+    return FS.pack_stream(parts, hp // FG.TILE_H, wp // FG.TILE_W)
 
 
 def random_raster_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
@@ -359,6 +380,20 @@ LIT_TOL = 1e-4
 # ulps; z and attributes where the winner agrees, as rtol and atol
 Z_TOL = 1e-6
 RASTER_TOL = 1e-5
+
+
+def bit_diff(got, want) -> tuple[float, float]:
+    """Two float32 tensors of one shape -> (fraction of values equal by
+    value or bit for bit, largest absolute difference of the others; inf
+    where one is not a number). Bit equality covers the stream kernel's
+    winner keys, int32 bits that may read as NaN."""
+    import torch
+
+    same = (got == want) | (got.view(torch.int32) == want.view(torch.int32))
+    d = torch.nan_to_num((got - want).abs(), nan=float("inf"))
+    d = torch.where(same, 0.0, d)
+    # counted as integers: a float32 mean of 3e8 ones is not exactly 1
+    return int(same.sum()) / max(same.numel(), 1), (d.max().item() if d.numel() else 0.0)
 
 
 def compare_raster(z_test, g_test, z_ref, g_ref) -> dict:

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain torch twins on the card, and the
-whole step on the GPU against the step on the CPU, for the main path and
+whole step on the GPU against the step on the CPU, for the main path, the
+three other megakernels (``rasterizer`` "stream", "mxu", "hybrid") and
 both per-pass paths. Marked ``cuda``: every test skips without a CUDA
 device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -9,7 +10,9 @@ Bounds are those of the CPU parity tests (``testing.compare_shade`` for
 the frame and stack-shade kernels, 1e-6 for the composite,
 ``testing.compare_raster`` and bit-equality of all nine G-buffer channels
 and the depth buffer for the raster pass, 1/255 on 99 % of pixels for a
-frame)."""
+frame). The stream, mxu and hybrid kernels do the same float and integer
+operations as their twins: every output channel equal
+(``testing.bit_diff``)."""
 
 import numpy as np
 import pytest
@@ -20,6 +23,9 @@ from reze_tpu_torch.camera import Camera
 from reze_tpu_torch.core.types import EngineConfig, init_scene_state
 from reze_tpu_torch.kernels import composite_gpu as CG
 from reze_tpu_torch.kernels import frame_gpu as FG
+from reze_tpu_torch.kernels import frame_hybrid as FH
+from reze_tpu_torch.kernels import frame_mxu as FM
+from reze_tpu_torch.kernels import frame_stream as FS
 from reze_tpu_torch.kernels import raster_gpu as RG
 from reze_tpu_torch.kernels import shade_gpu as SG
 from reze_tpu_torch.render import pipeline
@@ -130,8 +136,64 @@ def test_new_wrappers_refuse_bad_inputs(dev):
                        0.45, eye, inv_vp)
 
 
-@pytest.mark.parametrize("change", [{}, {"use_megakernel": False}, {"layered_shading": False}],
-                         ids=["main", "layered", "per_pass"])
+@pytest.mark.parametrize("analytic,use_mips,n", [(False, True, 4), (True, False, 1),
+                                                 (False, False, 2)])
+def test_hybrid_kernel_matches_twin(dev, analytic, use_mips, n):
+    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP, device=dev)
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    kw = dict(hp=HP, wp=WP, n_samples=n, use_mips=use_mips, lod_bias=(1.0, 0.0),
+              analytic=analytic)
+    before = FH.render_megakernel_hybrid.launches
+    got = FH.render_megakernel_hybrid(ft, tables, lights, 0.45, eye, inv_vp, **kw)
+    want = FH.render_megakernel_hybrid_twin(ft, tables, lights, 0.45, eye, inv_vp, **kw)
+    torch.cuda.synchronize()
+    assert FH.render_megakernel_hybrid.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("n", [4, 2])
+def test_mxu_kernel_matches_twin(dev, n):
+    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP, device=dev)
+    before = FM.render_megakernel_mxu.launches
+    got = FM.render_megakernel_mxu(ft, hp=HP, wp=WP, n_samples=n)
+    want = FM.render_megakernel_mxu_twin(ft, hp=HP, wp=WP, n_samples=n)
+    torch.cuda.synchronize()
+    assert FM.render_megakernel_mxu.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("n", [4, 1])
+def test_stream_kernel_matches_twin(dev, n):
+    st = ptesting.random_stream_tables(11, N_TRIS, HP, WP, device=dev)
+    before = FS.render_megakernel_stream.launches
+    got = FS.render_megakernel_stream(st, hp=HP, wp=WP, n_samples=n)
+    want = FS.render_megakernel_stream_twin(st, hp=HP, wp=WP, n_samples=n)
+    torch.cuda.synchronize()
+    assert FS.render_megakernel_stream.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+    stack = FS.compose_stream_state(got, n)
+    assert torch.isfinite(stack).all()
+
+
+def test_megakernel_wrappers_refuse_bad_inputs(dev):
+    ft = ptesting.random_frame_tables(11, (30,) * 7, 16, 128, device=dev)
+    with pytest.raises(ValueError):  # 5 samples
+        FM.render_megakernel_mxu(ft, hp=16, wp=128, n_samples=5)
+    with pytest.raises(ValueError):  # not whole 8x128 tiles
+        FM.render_megakernel_mxu(ft, hp=12, wp=128, n_samples=4)
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    with pytest.raises(ValueError):  # float64 rows
+        FH.render_megakernel_hybrid(ft._replace(rows=ft.rows.double()), tables, lights, 0.45,
+                                    eye, inv_vp, hp=16, wp=128, n_samples=4)
+    st = ptesting.random_stream_tables(11, (30,) * 7, 16, 128, device=dev)
+    with pytest.raises(ValueError):  # bounds of another frame
+        FS.render_megakernel_stream(st, hp=32, wp=128, n_samples=4)
+
+
+@pytest.mark.parametrize("change", [{}, {"rasterizer": "stream"}, {"rasterizer": "mxu"},
+                                    {"rasterizer": "hybrid"}, {"use_megakernel": False},
+                                    {"layered_shading": False}],
+                         ids=["main", "stream", "mxu", "hybrid", "layered", "per_pass"])
 def test_step_on_gpu_matches_cpu(dev, change):
     cfg = EngineConfig(width=256, height=128, enable_physics=False, **change)
     cam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0), aspect=2.0)

@@ -107,6 +107,64 @@ def run_frames(**cfg_kw):
     return out
 
 
+def bind_pose(jmodel):
+    """Skinned vertex positions and normals of the JAX model in its bind
+    pose, as numpy."""
+    from reze_tpu.kernels.skinning import skin_vertices
+    from reze_tpu.skeleton import fk as jfk
+
+    skel = jmodel.skeleton
+    rot = jnp.zeros((skel.j, 4)).at[:, 3].set(1.0)
+    q, p = jfk.world_transforms(skel, rot, jnp.zeros((skel.j, 3)))
+    pos, nrm = skin_vertices(jmodel.geometry, jmodel.skinning, jfk.skin_palette(skel, q, p))
+    return np.array(pos), np.array(nrm)
+
+
+def mega_frames(rasterizer, width=256, height=64):
+    """``render_frame_mega`` of both packages on the synthetic model in its
+    bind pose with ``rasterizer`` and default settings otherwise (4x MSAA,
+    mips, half-res albedo, bloom) -> (JAX frame, JAX pair overflow, port
+    frame, port pair overflow). The JAX side runs its Pallas kernels in
+    interpret mode."""
+    from reze_tpu.render import pipeline_tpu
+    from reze_tpu.render import shading_fast as JSF
+
+    jmodel = jtesting.make_test_model(tex_hw=TEX_HW)
+    pmodel = ptesting.make_test_model(tex_hw=TEX_HW, device="cpu")
+    kw = dict(width=width, height=height, enable_physics=False, rasterizer=rasterizer)
+    jcfg, pcfg = JT.EngineConfig(renderer="tpu", **kw), PT.EngineConfig(**kw)
+    cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
+                      aspect=width / height)
+    vp, eye = np.array(cam.view_proj()), np.array(cam.position())
+    pos, nrm = bind_pose(jmodel)
+    jlights = jpipe.make_lights(jcfg)
+    packed = JSF.pack_materials(jmodel.materials, jmodel.atlas)
+    jdims = pipeline_tpu.make_dims_fast(jcfg)
+
+    @jax.jit
+    def ref(pos, nrm, vp, eye, lights):
+        return pipeline_tpu.render_frame_mega(jmodel, jcfg, jdims, packed, pos, nrm, vp, eye,
+                                              lights, interpret=True, with_diag=True)
+
+    jframe, jovf = ref(pos, nrm, vp, eye, jlights)
+    t = torch.as_tensor
+    pframe, povf = pipeline_gpu.render_frame_mega(
+        pmodel, pcfg, pipeline_gpu.make_dims_fast(pcfg), t(pos), t(nrm), t(vp), t(eye),
+        bridge.from_jax_arrays(jax.device_get(jlights), "cpu"))
+    return np.asarray(jframe), int(jovf), pframe.numpy(), int(povf)
+
+
+def check_mega_frames(jframe, jovf, pframe, povf, width=256, height=64):
+    """The path-level bounds: >= 99 % of pixels within 1/255, the scene
+    drawn, pair overflow equal."""
+    assert pframe.shape == jframe.shape == (height, width, 3)
+    assert np.isfinite(pframe).all()
+    diff = np.abs(pframe - jframe).max(-1)
+    assert (diff <= 1.0 / 255.0).mean() >= 0.99, (diff > 1 / 255).mean()
+    assert (jframe.sum(-1) > 0.01).mean() > 0.05  # the scene draws
+    assert povf == jovf == 0
+
+
 @pytest.fixture(scope="module")
 def runs():
     return run_frames()
@@ -143,7 +201,6 @@ def test_physics_refused():
 
 
 @pytest.mark.parametrize("change", [
-    {"rasterizer": "stream"}, {"rasterizer": "mxu"}, {"rasterizer": "hybrid"},
     {"albedo_bilinear": True}, {"renderer": "xla"},
     {"use_megakernel": False, "albedo_bilinear": True},
 ])
