@@ -10,14 +10,17 @@ Phases, each printed on its own line:
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``reze_tpu_torch/kernels/csrc``
    and prints the time and each kernel's registers and spills;
-3. kernels against their plain torch twins on the card: the frame and
-   composite kernels on seeded random triangles (16x256, both coverage
-   modes) and on the 1920x1080 frame of the main path; the raster-pass and
-   stack-shade kernels on the seeded tables and stack of the CPU tests
-   (64x256) and on the 1080p frame's own seven pass tables and stack (the
-   raster pass bit for bit in all nine G-buffer channels and the depths);
-   the hybrid, mxu and stream kernels bit for bit in every output channel
-   on the CPU tests' seeded tables and on the 1080p frame's own tables;
+3. kernels against their plain torch twins on the card, every one but
+   the composite (within 1e-6) bit for bit in every output value: the
+   frame and composite kernels on seeded random triangles (16x256, both
+   coverage modes) and on the 1920x1080 frame of the main path; the
+   raster-pass and stack-shade kernels on the seeded tables and stack of
+   the CPU tests (64x256) and on the 1080p frame's own seven pass tables
+   and stack; the hybrid, mxu and stream kernels on the CPU tests' seeded
+   tables and on the 1080p frame's own tables; (3e) the frame kernel on a
+   64x1024 crop of a dense table set at the main path's shape (hundreds of
+   pairs per tile and pass) and the stack shade on a whole stack with both
+   layers present in every tile;
 4. the six render paths of ``make_step`` at 1920x1080, physics off, on
    the synthetic model with the camera close enough that its quads span
    the frame height, 5 frames each: the main path (default
@@ -29,8 +32,12 @@ Phases, each printed on its own line:
    read just after);
 5. timing: milliseconds per frame of each path (host clock over
    state-carrying steps, the six paths twice in turns in one call), and
-   each kernel next to its twin at the 1080p shapes (CUDA events), with its
-   bound;
+   each kernel's device time (torch.profiler's records of its launches)
+   next to its twin's (CUDA events) at the 1080p shapes, with its bound;
+   (5b) the frame kernel and the stack shade on three input sets at the
+   main path's shape: its own inputs, empty ones and the dense set, each
+   with its bound and the share of the bound, and the time of the whole
+   call (CUDA events, host work included);
 6. each path's step at 256x128 on the GPU against the step on the CPU
    (where the kernels' twins run);
 7. only with ``--profile``: each path's 1080p step under ``torch.profiler``
@@ -54,6 +61,13 @@ import time
 N_FRAMES = 5
 N_TIMED = 20
 W, H = 1920, 1080
+# the dense table set (phases 3e, 5b): seeded random triangles per pass,
+# each spanning a fixed share of the frame, so at 1088x1920 the pairs of a
+# non-empty tile and pass average several 128-pair chunks; the capacity
+# holds every pair
+DENSE_SEED = 3
+DENSE_TRIS = 4000
+DENSE_PAIRS_PER_TRI = 160
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
 HBM_BPS = 3.35e12
@@ -98,6 +112,33 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def kernel_ms(fn, n: int, kernel: str) -> float:
+    """Mean device time of one launch of the CUDA kernel named ``kernel``
+    over the launches of ``n`` calls of ``fn`` (after one warm-up call)
+    that torch.profiler recorded. Unlike :func:`cuda_ms` it leaves out
+    the host time of the calls, which a fast kernel waits on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and (f"{kernel}<" in e.key or f"{kernel}(" in e.key)]
+    count = sum(e.count for e in evs)  # the profiler may drop a few records
+    require(count > 0, (kernel, "no launch under the profiler"))
+    return sum(device_us(e) for e in evs) / count / 1e3
+
+
+def device_us(e) -> float:
+    """A profiler record's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(least ms on the card, what binds): the larger of the bytes over the
     memory rate and the operations over the float32 rate."""
@@ -135,18 +176,15 @@ def profile_step(step, state, args, n: int = 3) -> dict:
     wall = (time.perf_counter() - t0) / n * 1e3
     events = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # the kernels themselves (the ops that launched them carry the same time)
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     top = lambda evs, key: [(e.key[:48], round(key(e) / n / 1e3, 3))  # noqa: E731
                             for e in sorted(evs, key=key, reverse=True)[:6]]
     return {"wall_ms": round(wall, 3),
-            "device_busy_ms": round(sum(dev_us(e) for e in device) / n / 1e3, 3),
+            "device_busy_ms": round(sum(device_us(e) for e in device) / n / 1e3, 3),
             "device_ops": sum(e.count for e in device) // n,
             "launch_calls": sum(e.count for e in events if e.key == "cudaLaunchKernel") // n,
-            "top_device_ms": top(device, dev_us),
+            "top_device_ms": top(device, device_us),
             "top_host_ms": top(events, lambda e: e.self_cpu_time_total)}
 
 
@@ -198,23 +236,30 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                           tex_tab=t("tex_tab"), edge_tab=t("edge_tab"),
                           atlas_stride=sh["atlas_stride"])
     lights = pipeline.make_lights(EngineConfig(), dev)
+    # every kernel but the composite does the same float operations as its
+    # twin (-fmad=false): every output value equal bit for bit
+    exact_err = {k: 0.0 for k in ("frame", "raster_pass", "shade_stack", "hybrid", "mxu",
+                                   "stream")}
+
+    def check_exact(kernel, label, got, want):
+        frac, err = testing.bit_diff(got, want)
+        phase("check", kernel=kernel, tables=label, equal_frac=frac, max_abs_err=err)
+        require(frac == 1.0, (kernel, label, frac, err))
+        exact_err[kernel] = max(exact_err[kernel], err)
+
     rft = testing.random_frame_tables(11, (400,) * 7, 16, 256, device=dev)
     for name, analytic, mips in (("msaa_mips", False, True), ("analytic_nomips", True, False)):
         kw = dict(hp=16, wp=256, n_samples=4, use_mips=mips, lod_bias=(1.0, 0.0),
                   analytic=analytic)
-        got = FG.render_megakernel(rft, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"), **kw)
-        want = FG.render_megakernel_twin(rft, rtab, lights, 0.45, t("eye_pos"),
-                                         t("inv_vp"), **kw)
-        res = testing.compare_shade(got.cpu(), want.cpu())
-        phase("check", kernel="frame", tables=f"random_16x256_{name}",
-              same_frac=res["same_frac"], max_abs_err=res["max_abs_err"])
-        require(res["ok"], (name, res["same_frac"], res["max_abs_err"]))
+        check_exact("frame", f"random_16x256_{name}",
+                    FG.render_megakernel(rft, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"),
+                                         **kw),
+                    FG.render_megakernel_twin(rft, rtab, lights, 0.45, t("eye_pos"),
+                                              t("inv_vp"), **kw))
 
     # 3b. raster pass and stack shade against their twins on the CPU tests'
-    # seeded tables and stack, with the CPU tests' bounds (the raster pass
-    # also bit for bit; the stack shade's max_abs_err and equal_frac are
-    # printed)
-    raster_err, shade_err = 0.0, 0.0
+    # seeded tables and stack (the raster pass also within the CPU tests'
+    # bounds)
 
     def check_raster(tabs, chain, s, hp, wp, label):
         """Chain the passes through kernel and twin from fresh depth
@@ -222,11 +267,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         (``testing.compare_raster``: material id and cover, depths, and z
         and the six attribute planes where a triangle won) and, since
         kernel and twin do the same float operations, equal the twin bit
-        for bit in all nine channels and every depth; -> the largest
-        difference of any channel."""
+        for bit in all nine channels and every depth."""
         zk = torch.ones((s, hp, wp), device=dev)
         zt = torch.ones((s, hp, wp), device=dev)
-        worst = 0.0
         for i, (tb, (dw, attrs)) in enumerate(zip(tabs, chain)):
             zk, gk = RG.raster_pass(tb, zk, bx=wp // RG.TILE_W, depth_write=dw,
                                     with_attrs=attrs)
@@ -238,36 +281,20 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                   mat_cover_z_fracs=res["fracs"], drawn_err=res["drawn_err"],
                   drawn=(gk[RG.CH_MAT] >= 0).float().mean().item())
             require(res["ok"] and res["max_abs_err"] == 0.0, (label, i, res))
-            worst = max(worst, res["max_abs_err"])
-        return worst
+            exact_err["raster_pass"] = max(exact_err["raster_pass"], res["max_abs_err"])
 
     rtabs = testing.random_raster_tables(11, (300, 300), 64, 256, device=dev)
     for s, chain in ((4, ((True, True), (False, False))), (1, ((True, False), (False, True)))):
-        raster_err = max(raster_err, check_raster(rtabs, chain, s, 64, 256, "random_64x256"))
+        check_raster(rtabs, chain, s, 64, 256, "random_64x256")
     stack_r = testing.random_stack(7, 64, 256, empty_tiles=((0, 0), (1, 1)), device=dev)
     for mips in (True, False):
         skw = dict(use_mips=mips, lod_bias=(1.0, 0.0))
-        got = SG.shade_stack(stack_r, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"), **skw)
-        want = SG.shade_stack_twin(stack_r, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"),
-                                   **skw)
-        err = (got - want).abs().max().item()
-        res = testing.compare_shade(got.cpu(), want.cpu())
-        phase("check", kernel="shade_stack", tables=f"random_64x256_mips{int(mips)}",
-              max_abs_err=err, equal_frac=(got == want).float().mean().item(),
-              same_frac=res["same_frac"])
-        require(res["ok"], ("random stack", mips, err, res["same_frac"]))
-        shade_err = max(shade_err, err)
+        sa = (stack_r, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
+        check_exact("shade_stack", f"random_64x256_mips{int(mips)}",
+                    SG.shade_stack(*sa, **skw), SG.shade_stack_twin(*sa, **skw))
 
     # 3c. the hybrid, mxu and stream kernels against their twins on the
-    # same seeded tables, bit for bit in every output channel
-    exact_err = {"hybrid": 0.0, "mxu": 0.0, "stream": 0.0}
-
-    def check_exact(kernel, label, got, want):
-        frac, err = testing.bit_diff(got, want)
-        phase("check", kernel=kernel, tables=label, equal_frac=frac, max_abs_err=err)
-        require(frac == 1.0, (kernel, label, frac, err))
-        exact_err[kernel] = max(exact_err[kernel], err)
-
+    # same seeded tables
     for name, analytic, mips, n in (("msaa_mips", False, True, 4),
                                     ("analytic_nomips", True, False, 1)):
         kw = dict(hp=16, wp=256, n_samples=n, use_mips=mips, lod_bias=(1.0, 0.0),
@@ -320,13 +347,38 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, use_mips=use_mips,
                lod_bias=lod_bias)
     fargs = (ft, tables, lights, cfg.rim_light_intensity, eye, inv_vp)
+
+    # bounds from a run's inputs: the bytes each function must move (each
+    # input value it needs read once, each output written once) and the
+    # operations these inputs need, counted from the pairs the tables hold
+    def frame_bound(tabs, shade_tables, out):
+        """The frame kernel's: every pair's row, the per-tile starts and
+        counts and the shade tables in, the 18 planes out; per pair the
+        walk of its tile's pixels, per pixel the shade of both layers."""
+        pairs = int(tabs.counts.sum())  # one row per pair
+        walk = PLANE_OPS + SAMPLE_OPS * cfg.msaa_samples
+        return bound(pairs * FG.ROW_W * 4
+                     + nbytes(tabs.starts, tabs.counts, *shade_tables[1:4], out),
+                     pairs * FG.TILE_H * FG.TILE_W * walk + 2 * out[0].numel() * SHADE_OPS)
+
+    def present_tiles(stk):
+        """Per layer, the 32x128 tiles where it has a fragment."""
+        hp_, wp_ = stk.shape[-2:]
+        return [int((stk[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
+            hp_ // SG.STACK_TILE_H, SG.STACK_TILE_H, wp_ // SG.STACK_TILE_W,
+            SG.STACK_TILE_W).any(3).any(1).sum()) for layer in range(2)]
+
+    def shade_bound(stk, shade_tables, out):
+        """The stack shade's: a_eff of both layers everywhere, a layer's
+        other channels only in the 32x128 tiles where it is present
+        (elsewhere its output is fixed), the shade tables, all 18 output
+        planes; the shade's operations on the present tiles' pixels."""
+        tile_px, n_present = SG.STACK_TILE_H * SG.STACK_TILE_W, sum(present_tiles(stk))
+        return bound(2 * stk[0].numel() * 4 + n_present * tile_px * (SG.L_CH - 1) * 4
+                     + nbytes(*shade_tables[1:4], out), n_present * tile_px * SHADE_OPS)
     o_k = FG.render_megakernel(*fargs, **fkw)
     o_t = FG.render_megakernel_twin(*fargs, **fkw)
-    res = testing.compare_shade(o_k.cpu(), o_t.cpu())
-    phase("check", kernel="frame", tables=f"main_path_{W}x{H}",
-          same_frac=res["same_frac"], max_abs_err=res["max_abs_err"])
-    require(res["ok"], ("main path tables", res["same_frac"], res["max_abs_err"]))
-    frame_err = res["max_abs_err"]
+    check_exact("frame", f"main_path_{W}x{H}", o_k, o_t)
     atlas = model.atlas.mip_flat.contiguous()
     ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
                with_bloom=cfg.enable_bloom)
@@ -339,19 +391,12 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     ptabs = [pipeline_gpu.pass_tables(model, cfg, dims, pos, nrm, vp, None, p)
              for p in range(FG.N_PASSES)]
     pchain = [(cfg_p[1], not cfg_p[0]) for cfg_p in FG.PASS_CFG]  # (depth_write, attrs)
-    raster_err = max(raster_err, check_raster(ptabs, pchain, cfg.msaa_samples, dims.hp,
-                                              dims.wp, f"main_path_{W}x{H}"))
+    check_raster(ptabs, pchain, cfg.msaa_samples, dims.hp, dims.wp, f"main_path_{W}x{H}")
     stack, _ = pipeline_gpu.layered_stack(model, cfg, dims, tables, pos, nrm, vp)
     sargs = (stack, tables, lights, cfg.rim_light_intensity, eye, inv_vp)
     skw = dict(use_mips=use_mips, lod_bias=lod_bias)
     s_k = SG.shade_stack(*sargs, **skw)
-    s_t = SG.shade_stack_twin(*sargs, **skw)
-    err = (s_k - s_t).abs().max().item()
-    res = testing.compare_shade(s_k.cpu(), s_t.cpu())
-    phase("check", kernel="shade_stack", tables=f"main_path_{W}x{H}", max_abs_err=err,
-          equal_frac=(s_k == s_t).float().mean().item(), same_frac=res["same_frac"])
-    require(res["ok"], ("main path stack", err, res["same_frac"]))
-    shade_err = max(shade_err, err)
+    check_exact("shade_stack", f"main_path_{W}x{H}", s_k, SG.shade_stack_twin(*sargs, **skw))
     fkw_h = dict(fkw, analytic=False)
     check_exact("hybrid", f"main_path_{W}x{H}", FH.render_megakernel_hybrid(*fargs, **fkw_h),
                 FH.render_megakernel_hybrid_twin(*fargs, **fkw_h))
@@ -361,6 +406,45 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     st = pipeline_gpu._build_stream_tables(model, cfg, dims, tables, pos, nrm, vp, None)
     raw_k = FS.render_megakernel_stream(st, **mkw)
     check_exact("stream", f"main_path_{W}x{H}", raw_k, FS.render_megakernel_stream_twin(st, **mkw))
+
+    # 3e. the frame kernel and the stack shade on dense inputs: the frame
+    # kernel on a crop of the dense tables at the main path's shape (the
+    # crop's tiles keep their pairs; the twin is too slow for the whole
+    # frame), the stack shade on a whole stack with both layers present in
+    # every tile
+    dense_ft = testing.random_frame_tables(DENSE_SEED, (DENSE_TRIS,) * FG.N_PASSES, dims.hp,
+                                           dims.wp, device=dev,
+                                           pairs_per_tri=DENSE_PAIRS_PER_TRI)
+    ty, tx = dims.hp // FG.TILE_H, dims.wp // FG.TILE_W
+    live = dense_ft.counts[dense_ft.counts > 0]
+    dense_mean = live.float().mean().item()
+    phase("dense", frame=f"{dims.hp}x{dims.wp}", pairs=int(live.sum()),
+          overflow=int(dense_ft.overflow), nonempty_frac=live.numel() / dense_ft.counts.numel(),
+          mean_pairs_nonempty=round(dense_mean, 1), max_pairs=int(live.max()))
+    require(int(dense_ft.overflow) == 0, "dense set overflow")
+    require(dense_mean >= FG.CHUNK, ("dense set pairs per non-empty tile", dense_mean))
+    cy, cx = min(8, ty), min(8, tx)
+    r0, c0 = (ty - cy) // 2, (tx - cx) // 2
+
+    def crop(v):
+        return v.reshape(FG.N_PASSES, ty, tx)[:, r0:r0 + cy, c0:c0 + cx].reshape(
+            FG.N_PASSES, -1).contiguous()
+
+    crop_ft = dense_ft._replace(starts=crop(dense_ft.starts), counts=crop(dense_ft.counts))
+    crop_hw = f"{cy * FG.TILE_H}x{cx * FG.TILE_W}"
+    for name, analytic, mips, n in (("msaa_mips", False, True, 4),
+                                    ("analytic_nomips", True, False, 1)):
+        kw = dict(hp=cy * FG.TILE_H, wp=cx * FG.TILE_W, n_samples=n, use_mips=mips,
+                  lod_bias=(1.0, 0.0), analytic=analytic)
+        dargs = (crop_ft, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
+        check_exact("frame", f"dense_crop_{crop_hw}_{name}", FG.render_megakernel(*dargs, **kw),
+                    FG.render_megakernel_twin(*dargs, **kw))
+    dense_stack = testing.random_stack(DENSE_SEED, dims.hp, dims.wp, empty_tiles=(), device=dev)
+    dsa = (dense_stack, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
+    for mips in (True, False):
+        dskw = dict(use_mips=mips, lod_bias=(1.0, 0.0))
+        check_exact("shade_stack", f"all_present_{dims.hp}x{dims.wp}_mips{int(mips)}",
+                    SG.shade_stack(*dsa, **dskw), SG.shade_stack_twin(*dsa, **dskw))
 
     # 4. the six paths, 5 frames each, counts set to 0 just before each
     counters = {"frame": FG.render_megakernel, "stream": FS.render_megakernel_stream,
@@ -413,8 +497,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                 (name, "the tween moves the pose"))
 
     # 5. timing: host clock over state-carrying steps (the step is
-    # host-bound), the paths in turns in this one call; CUDA events for the
-    # kernels and their twins
+    # host-bound), the paths in turns in this one call; the kernels' own
+    # device time (their wrappers' host work is longer than some of them);
+    # CUDA events for the twins
     frame_ms = {name: [] for name in paths}
     for name in list(paths) + list(paths)[::-1]:  # in turns: a..f, f..a
         state = states[name]
@@ -427,10 +512,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         torch.cuda.synchronize()
         frame_ms[name].append((time.perf_counter() - t0) / N_TIMED * 1e3)
     t_t0 = cuda_ms(lambda: FG.render_megakernel_twin(*fargs, **fkw), 3)
-    t_k = cuda_ms(lambda: FG.render_megakernel(*fargs, **fkw), 20)
+    t_k = kernel_ms(lambda: FG.render_megakernel(*fargs, **fkw), 20, "frame_kernel")
     t_t = (t_t0 + cuda_ms(lambda: FG.render_megakernel_twin(*fargs, **fkw), 3)) / 2
     c_t0 = cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)
-    c_k = cuda_ms(lambda: CG.composite(o_t, atlas, **ckw), 50)
+    c_k = kernel_ms(lambda: CG.composite(o_t, atlas, **ckw), 50, "composite_kernel")
     c_t = (c_t0 + cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)) / 2
     zbuf = torch.ones((cfg.msaa_samples, dims.hp, dims.wp), device=dev)
 
@@ -439,10 +524,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             fn(tb, zbuf, bx=dims.bx, depth_write=dw, with_attrs=attrs)
 
     r_t0 = cuda_ms(lambda: raster_chain(RG.raster_pass_twin), 1) / FG.N_PASSES
-    r_k = cuda_ms(lambda: raster_chain(RG.raster_pass), 20) / FG.N_PASSES
+    r_k = kernel_ms(lambda: raster_chain(RG.raster_pass), 20, "raster_kernel")
     r_t = (r_t0 + cuda_ms(lambda: raster_chain(RG.raster_pass_twin), 1) / FG.N_PASSES) / 2
     sh_t0 = cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)
-    sh_k = cuda_ms(lambda: SG.shade_stack(*sargs, **skw), 50)
+    sh_k = kernel_ms(lambda: SG.shade_stack(*sargs, **skw), 50, "shade_stack_kernel")
     sh_t = (sh_t0 + cuda_ms(lambda: SG.shade_stack_twin(*sargs, **skw), 2)) / 2
     new_ms = {}  # kernel: (kernel ms, twin ms), the twin timed before and after
     for name, kern, twin in (
@@ -453,7 +538,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             ("stream", lambda: FS.render_megakernel_stream(st, **mkw),
              lambda: FS.render_megakernel_stream_twin(st, **mkw))):
         tw0 = cuda_ms(twin, 2)
-        new_ms[name] = (cuda_ms(kern, 20), (tw0 + cuda_ms(twin, 2)) / 2)
+        new_ms[name] = (kernel_ms(kern, 20, f"{name}_kernel"), (tw0 + cuda_ms(twin, 2)) / 2)
     phase("timing", card=smi, **{f"ms_per_frame_{k}": "/".join(f"{x:.3f}" for x in v)
                                  for k, v in frame_ms.items()})
     phase("timing", frame_kernel_ms=f"{t_k:.4f}", frame_twin_ms=f"{t_t:.3f}",
@@ -463,16 +548,36 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           **{f"{k}_{w}ms": f"{v[i]:.4f}" for k, v in new_ms.items()
              for i, w in ((0, ""), (1, "twin_"))})
 
-    # bounds from this run's inputs: the bytes each function must move (each
-    # input value it needs read once, each output written once) and the
-    # operations these inputs need, counted from the pairs the tables hold
+    # 5b. the frame kernel and the stack shade on three input sets at the
+    # main path's shapes: (a) the main path's own inputs, (b) empty ones
+    # (every count 0; no fragment in the stack), which leave only the fixed
+    # per-tile cost, (c) the dense set of phase 3e; each beside its bound
+    for label, tabs, shtab in (("main", ft, tables),
+                               ("empty", ft._replace(counts=torch.zeros_like(ft.counts)), tables),
+                               ("dense", dense_ft, rtab)):
+        fa = (tabs, shtab, lights, cfg.rim_light_intensity, eye, inv_vp)
+        ms = kernel_ms(lambda: FG.render_megakernel(*fa, **fkw), N_TIMED, "frame_kernel")
+        call = cuda_ms(lambda: FG.render_megakernel(*fa, **fkw), N_TIMED)
+        b = frame_bound(tabs, shtab, FG.render_megakernel(*fa, **fkw))
+        phase("set", kernel="frame", set=label, card=smi, pairs=int(tabs.counts.sum()),
+              ms=f"{ms:.4f}", call_ms=f"{call:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
+              share=f"{b[0] / ms:.3f}")
+    for label, stk, shtab in (("main", stack, tables), ("empty", torch.zeros_like(stack), tables),
+                              ("dense", dense_stack, rtab)):
+        sa = (stk, shtab, lights, cfg.rim_light_intensity, eye, inv_vp)
+        ms = kernel_ms(lambda: SG.shade_stack(*sa, **skw), N_TIMED, "shade_stack_kernel")
+        call = cuda_ms(lambda: SG.shade_stack(*sa, **skw), N_TIMED)
+        b = shade_bound(stk, shtab, SG.shade_stack(*sa, **skw))
+        phase("set", kernel="shade_stack", set=label, card=smi,
+              present_tiles=present_tiles(stk), ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
+              bound_ms=f"{b[0]:.4f}", bound_by=b[1], share=f"{b[0] / ms:.3f}")
+
+    # bounds from this run's inputs (see frame_bound)
     p = dims.hp * dims.wp
     s = cfg.msaa_samples
     walk_ops = PLANE_OPS + SAMPLE_OPS * s
-    shade_tabs = tables[1:4]
     frame_pairs = int(ft.counts.sum())  # one row per pair
-    b_frame = bound(frame_pairs * FG.ROW_W * 4 + nbytes(ft.starts, ft.counts, *shade_tabs, o_k),
-                    frame_pairs * FG.TILE_H * FG.TILE_W * walk_ops + 2 * p * SHADE_OPS)
+    b_frame = frame_bound(ft, tables, o_k)
     # the hybrid kernel: the frame kernel's inputs, work and output
     b_hybrid = b_frame
     # the mxu kernel: the same rows in, the planar 24-channel stack out
@@ -511,11 +616,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     # a_eff of both layers everywhere; a layer's other channels only in the
     # 32x128 tiles where it is present (elsewhere its output is fixed); all
     # 18 output planes
-    present = [int((stack[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
-        dims.by, RG.TILE_H, dims.bx, RG.TILE_W).any(3).any(1).sum()) for layer in range(2)]
-    tile_px = RG.TILE_H * RG.TILE_W
-    b_shade = bound(2 * p * 4 + sum(present) * tile_px * (SG.L_CH - 1) * 4
-                    + nbytes(*shade_tabs, s_k), sum(present) * tile_px * SHADE_OPS)
+    present = present_tiles(stack)
+    b_shade = shade_bound(stack, tables, s_k)
     phase("bounds", raster_touched_band_frac=touched_frac, shade_present_tiles=present,
           tiles=dims.b, **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
               ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
@@ -555,7 +657,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         {"name": "frame_megakernel", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/frame.cu",
          "replaces": "reze_tpu/kernels/frame_tpu.py:678",
-         "launches": launches["main"]["frame"], "max_abs_err": frame_err, "ms": t_k,
+         "launches": launches["main"]["frame"], "max_abs_err": exact_err["frame"], "ms": t_k,
          "plain_ms": t_t, "bound_ms": b_frame[0], "bound_by": b_frame[1],
          "library_ms": None},
         {"name": "composite", "route": "cuda",
@@ -567,13 +669,13 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         {"name": "raster_pass", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/raster.cu",
          "replaces": "reze_tpu/kernels/raster_tpu.py:316",
-         "launches": launches["layered"]["raster_pass"], "max_abs_err": raster_err,
+         "launches": launches["layered"]["raster_pass"], "max_abs_err": exact_err["raster_pass"],
          "ms": r_k, "plain_ms": r_t, "bound_ms": b_raster[0], "bound_by": b_raster[1],
          "library_ms": None},
         {"name": "shade_stack", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/shade_stack.cu",
          "replaces": "reze_tpu/kernels/shade_tpu.py:331",
-         "launches": launches["layered"]["shade_stack"], "max_abs_err": shade_err,
+         "launches": launches["layered"]["shade_stack"], "max_abs_err": exact_err["shade_stack"],
          "ms": sh_k, "plain_ms": sh_t, "bound_ms": b_shade[0], "bound_by": b_shade[1],
          "library_ms": None},
     ]

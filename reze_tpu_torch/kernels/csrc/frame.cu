@@ -8,19 +8,32 @@
 // against the depth buffer as it stood before the group, latest-drawn
 // winner at minimum centre z, tile-local planes, stack push rules).
 //
-// What bounds it on this card: per pixel and per pair, 3 edge planes + 1
-// depth plane at up to 4 samples (~60 float ops), with 7 passes of state
-// per pixel (4 depth samples, 4 coverage flags, an 8-channel G-buffer, a
-// 24-channel stack, a stencil: 41 floats x 1024 pixels = 168 KB). That is
-// far more than 1024 threads' registers (64 each), so the design keeps it
-// in dynamic shared memory, one pixel per thread, each thread the sole
-// owner of its pixel's state (no synchronisation on it). The tile's pair
-// rows are staged in 128-pair chunks in shared memory, with the per-pair
-// constants moved to the tile origin and the sample offsets computed once
-// per chunk; every thread then reads the same pair at the same time
-// (broadcast). Device memory traffic is the pair rows once per tile and
-// the 18-channel output once: the kernel is bound by the per-pixel float
-// work and by one block per SM (the shared-memory footprint).
+// What bounds it on this card: with few pairs per tile, the fixed cost of a
+// tile (its state, the shade of both layers, the 18-plane store: 72 B per
+// pixel, the one term of the byte bound that every tile pays); with many,
+// the per-pixel float work of the walk (per pixel and pair 3 edge planes
+// and the depth plane, then per sample 4 sums and 6 tests). A pixel's state
+// is 7 passes of depths, coverage, a pass winner and a two-layer stack.
+//
+// The design: 512 threads per tile, each owning two pixels four rows apart,
+// and no copied channel: a pixel's depths, its coverage bits and the
+// stencil (one int; one float of coverage in analytic mode) and its pass
+// winner as (z, global row index) stay in registers, and each stack layer
+// is (row index and pass, z, a_eff) in shared memory, read and written by
+// the pixel's thread alone. The attributes and the material code are
+// evaluated from the row when the tile is shaded, with the same products
+// in the same order as the twin. That takes 85 KB of shared memory per
+// block and at most 64 registers per thread, so two tiles are resident per
+// SM and one tile's shade and store overlap the other's walk. The 128-pair
+// chunks of all passes form one sequence: one thread copies chunk k + 1
+// (160 B rows) into a two-stage ring with the Tensor Memory Accelerator
+// (cp.async.bulk, completion on an mbarrier) while the block walks chunk
+// k. The threads of a chunk's pairs then move each plane constant to the
+// tile origin and compute the sample offsets once per pair into a 128 B
+// record that the walk reads as broadcast 16-byte loads, two pixels per
+// load; a pixel outside an edge at all samples skips the sample tests. A
+// tile with no pair in any pass writes its fixed output and stops. The
+// shade tables are staged in shared memory once per tile.
 //
 // Compiled with -fmad=false: each product rounds on its own, as in the
 // twin, so coverage and z-ties decide the same way.
@@ -34,7 +47,15 @@ namespace reze {
 namespace {
 
 constexpr int GROUP = 32;
-constexpr int G_UIW = 0, G_Z = 6, G_ALPHA = 7, G_CH = 8;
+constexpr int NTHREADS = 512;
+constexpr int PPT = NPIX / NTHREADS;         // pixels per thread
+constexpr int ROW_STEP = NTHREADS / TILE_W;  // rows between a thread's pixels
+// a prepared pair: per plane (edges 0-2, depth) a, b, c at the tile origin
+// and, for an edge, 1/|grad| (analytic) or its largest sample offset
+// (MSAA), then per sample the four plane offsets
+constexpr int PREP_W = 32;
+constexpr int PREP_OFF = 16;
+constexpr float NO_HIT = 2.f;  // pass winner depth before any pair won
 
 struct FrameArgs {
   const float* rows;
@@ -44,152 +65,389 @@ struct FrameArgs {
   ShadeParams sp;
 };
 
-__host__ __device__ constexpr int smem_floats(int ns) {
-  return (2 * ns + G_CH + 2 * L_CH + 1) * NPIX + CHUNK * ROW_W + CHUNK * 16;
+// a stack layer: its winner's row and pass as row * 8 + pass (-1: empty,
+// every channel 0), its depth and effective alpha
+struct Layer {
+  int ref;
+  float z, a;
+};
+
+struct __align__(128) Smem {
+  float ring[2][CHUNK * ROW_W];  // staged rows; ring[0] is the shade's u/v exchange
+  float prep[CHUNK * PREP_W];
+  Layer stack[2][NPIX];  // a pixel's layers, read and written by its thread only
+  float shade[SHADE_SMEM_FLOATS];
+  uint64_t bar[2];
+  int start[N_PASSES], count[N_PASSES];
+};
+
+// --- mbarrier and bulk copy (PTX) ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// one thread: copy n rows from device memory into the ring's stage, the
+// stage's barrier completing when the bytes have landed
+__device__ __forceinline__ void stage_rows(Smem& sm, const float* src, int n, int stage) {
+  const uint32_t bytes = (uint32_t)(n * ROW_W * sizeof(float));
+  const uint32_t bar = smem_addr(&sm.bar[stage]);
+  // the stage's previous rows were read through the generic proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(sm.ring[stage])), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// --- per-pixel state -------------------------------------------------------
+
+constexpr int STENCIL_BIT = 1 << 4;  // above the NS <= 4 coverage bits
+
+// The push of one pass's winner (push_winner in frame_common.cuh, on
+// references): opaque fragments clear the stack, translucent ones displace
+// layer 1 into layer 0, a_eff < 0.001 is dropped; hair alpha halves over
+// the stencil, which the eye pass writes.
+__device__ __forceinline__ void push_ref(Layer& l0, Layer& l1, int& bits, bool hit, float cover,
+                                         float code_f, int ref, float z, int p) {
+  const int code = (int)rintf(code_f);
+  float al = (float)(code & 1023) * (float)(1.0 / 1023.0);
+  const int rest = code >> 10;
+  if (PASS_CFG[p][3]) {
+    const float hair = (float)((rest >> 12) & 1);
+    al = al * (((bits & STENCIL_BIT) && hair > 0.5f) ? 0.5f : 1.f);
+  }
+  float a_eff = hit ? al * cover : 0.f;
+  const bool present = a_eff >= (float)0.001;
+  if (!present) a_eff = 0.f;
+  const bool opaque = present && a_eff > (float)0.999;
+  const bool displace = present && !opaque && l1.a > 0.f;
+  if (opaque) l0 = Layer{-1, 0.f, 0.f};
+  else if (displace) l0 = l1;
+  if (present) l1 = Layer{ref, z, a_eff};
+  if (PASS_CFG[p][2] && hit && cover > 0.f) bits |= STENCIL_BIT;
+}
+
+// A layer's L_CH stack channels at tile-local pixel centre (xs, ys): the
+// attribute planes of its row with the constant moved to the tile origin
+// (zero for outline passes), its depth and alpha, its pass's outline flag
+// and its material code's group ids.
+__device__ __forceinline__ void layer_channels(const float* rows, const Layer& l, float xs,
+                                               float ys, float x0f, float y0f, float* stk) {
+  for (int ch = 0; ch < L_CH; ++ch) stk[ch] = 0.f;
+  if (l.ref < 0) return;
+  const float* r = rows + (size_t)(l.ref >> 3) * ROW_W;
+  const int p = l.ref & 7;
+  if (!PASS_CFG[p][0])
+    for (int ch = 0; ch < 6; ++ch) {
+      const float ca = __ldg(r + C_ATTR + ch), cb = __ldg(r + C_ATTR + 6 + ch);
+      const float cc = (__ldg(r + C_ATTR + 12 + ch) + ca * x0f) + cb * y0f;
+      stk[L_UIW + ch] = (ca * xs + cc) + cb * ys;
+    }
+  const int rest = (int)rintf(__ldg(r + C_ALPHA)) >> 10;
+  stk[L_Z] = l.z;
+  stk[L_AEFF] = l.a;
+  stk[L_OUT] = PASS_CFG[p][0] ? 1.f : 0.f;
+  stk[L_RAMP] = (float)(rest & 15);
+  stk[L_TEX] = (float)((rest >> 4) & 15);
+  stk[L_EDGE] = (float)((rest >> 8) & 15);
+}
+
+// the output of a tile where neither layer has a fragment: texel index -1,
+// everything else 0
+__device__ __forceinline__ void store_empty_tile(float* out, int bi, int bj, int hp, int wp,
+                                                 int tid) {
+  const size_t plane = (size_t)hp * wp;
+  constexpr int V = NPIX / 4;  // float4 per plane
+  for (int i = tid; i < 2 * O_CH * V; i += NTHREADS) {
+    const int ch = i / V, k = i % V;
+    const int y = k / (TILE_W / 4), x4 = k % (TILE_W / 4);
+    const float v = (ch % O_CH) == O_TEX ? -1.f : 0.f;
+    float* o = out + ch * plane + (size_t)(bi * TILE_H + y) * wp + bj * TILE_W + 4 * x4;
+    *reinterpret_cast<float4*>(o) = make_float4(v, v, v, v);
+  }
 }
 
 template <int NS, bool ANALYTIC>
-__global__ void __launch_bounds__(NPIX, 1) frame_kernel(FrameArgs a) {
-  extern __shared__ float sm[];
-  float* zbuf = sm;                         // [NS][NPIX]
-  float* won = zbuf + NS * NPIX;            // [NS][NPIX] coverage per sample
-  float* gbuf = won + NS * NPIX;            // [G_CH][NPIX] pass G-buffer
-  float* stack = gbuf + G_CH * NPIX;        // [2 * L_CH][NPIX]
-  float* stencil = stack + 2 * L_CH * NPIX;  // [NPIX]
-  float* rows = stencil + NPIX;             // [CHUNK][ROW_W] staged pairs
-  float* offs = rows + CHUNK * ROW_W;       // [CHUNK][16] sample offsets
+__global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_bytes);
 
   const int tid = threadIdx.x;
-  const int py = tid / TILE_W, px = tid % TILE_W;
+  const int px = tid % TILE_W, py0 = tid / TILE_W;
   const int bx_n = a.sp.wp / TILE_W;
   const int n_tiles = bx_n * (a.sp.hp / TILE_H);
   const int b = blockIdx.x;
   const int bi = b / bx_n, bj = b % bx_n;
   const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
-  const float xs = (float)px + 0.5f, ys = (float)py + 0.5f;  // tile-local
+  const float xs = (float)px + 0.5f;  // tile-local
+  float ys[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) ys[k] = (float)(py0 + k * ROW_STEP) + 0.5f;
 
-  for (int s = 0; s < NS; ++s) zbuf[s * NPIX + tid] = 1.f;
-  for (int ch = 0; ch < 2 * L_CH; ++ch) stack[ch * NPIX + tid] = 0.f;
-  stencil[tid] = 0.f;
+  if (tid < N_PASSES) {
+    sm.count[tid] = a.counts[tid * n_tiles + b];
+    sm.start[tid] = a.starts[tid * n_tiles + b];
+  }
+  if (tid == 0) {
+    mbar_init(&sm.bar[0]);
+    mbar_init(&sm.bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int first = N_PASSES;
+  for (int p = N_PASSES - 1; p >= 0; --p)
+    if (sm.count[p] > 0) first = p;
+  if (first == N_PASSES) {  // uniform over the block
+    store_empty_tile(a.out, bi, bj, a.sp.hp, a.sp.wp, tid);
+    return;
+  }
+  if (tid == 0) stage_rows(sm, a.rows + (size_t)sm.start[first] * ROW_W,
+                           min(sm.count[first], CHUNK), 0);
+  const ShadeParams sp = stage_shade_params(a.sp, sm.shade, tid, NTHREADS);
 
-  for (int p = 0; p < N_PASSES; ++p) {
-    const int count = a.counts[p * n_tiles + b];
+  float zbuf[PPT][NS];
+  int bits[PPT];  // coverage of the pass per sample, the stencil
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    for (int s = 0; s < NS; ++s) zbuf[k][s] = 1.f;
+    sm.stack[0][tid + k * NTHREADS] = sm.stack[1][tid + k * NTHREADS] = Layer{-1, 0.f, 0.f};
+    bits[k] = 0;
+  }
+
+  int chunk = 0;  // position in the sequence of all passes' chunks
+  for (int p = first; p < N_PASSES; ++p) {
+    const int count = sm.count[p];
     if (count <= 0) continue;  // uniform over the block
-    const int start = a.starts[p * n_tiles + b];
-    const bool outline = PASS_CFG[p][0], depth_write = PASS_CFG[p][1];
-    for (int ch = 0; ch < G_CH; ++ch) gbuf[ch * NPIX + tid] = 0.f;
-    gbuf[G_Z * NPIX + tid] = 2.f;
-    for (int s = 0; s < NS; ++s) won[s * NPIX + tid] = 0.f;
+    const int start = sm.start[p];
+    const bool depth_write = PASS_CFG[p][1];
+    float gz[PPT], won_a[PPT];  // pass winner depth; analytic coverage
+    int gidx[PPT];              // pass winner row
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      gz[k] = NO_HIT;
+      gidx[k] = -1;
+      won_a[k] = 0.f;
+      bits[k] &= STENCIL_BIT;
+    }
 
-    for (int c0 = 0; c0 < count; c0 += CHUNK) {
+    for (int c0 = 0; c0 < count; c0 += CHUNK, ++chunk) {
       const int n = min(count - c0, CHUNK);
-      __syncthreads();  // the previous chunk is consumed
-      const float* src = a.rows + (size_t)(start + c0) * ROW_W;
-      for (int i = tid; i < n * ROW_W; i += NPIX) rows[i] = src[i];
-      __syncthreads();
+      const int stage = chunk & 1;
+      if (tid == 0) {  // the next chunk into the other stage (read before the last barrier)
+        int np = p, nc = c0 + CHUNK;
+        if (nc >= count) {
+          nc = 0;
+          for (np = p + 1; np < N_PASSES && sm.count[np] <= 0; ++np) {
+          }
+        }
+        if (np < N_PASSES)
+          stage_rows(sm, a.rows + (size_t)(sm.start[np] + nc) * ROW_W,
+                     min(sm.count[np] - nc, CHUNK), stage ^ 1);
+      }
+      __syncthreads();  // the previous chunk's walk is done with prep
       if (tid < n) {
-        // move plane constants to the tile origin; sample offsets per pair
-        float* r = rows + tid * ROW_W;
+        mbar_wait(&sm.bar[stage], (chunk >> 1) & 1);
+        const float* r = sm.ring[stage] + tid * ROW_W;
+        float* d = sm.prep + tid * PREP_W;
         for (int e = 0; e < 4; ++e) {
           const int k = e < 3 ? 3 * e : C_Z;
-          r[k + 2] = (r[k + 2] + r[k] * x0f) + r[k + 1] * y0f;
-          for (int s = 0; s < NS; ++s)
-            offs[tid * 16 + s * 4 + e] = r[k] * SAMPLE_DX[s] + r[k + 1] * SAMPLE_DY[s];
-        }
-        for (int ch = 0; ch < 6; ++ch) {
-          float* c = r + C_ATTR + 12 + ch;
-          *c = (*c + r[C_ATTR + ch] * x0f) + r[C_ATTR + 6 + ch] * y0f;
+          d[4 * e] = r[k];
+          d[4 * e + 1] = r[k + 1];
+          d[4 * e + 2] = (r[k + 2] + r[k] * x0f) + r[k + 1] * y0f;
+          float omax = 0.f;
+          for (int s = 0; s < NS; ++s) {
+            const float o = r[k] * SAMPLE_DX[s] + r[k + 1] * SAMPLE_DY[s];
+            d[PREP_OFF + s * 4 + e] = o;
+            omax = s ? fmaxf(omax, o) : o;
+          }
+          d[4 * e + 3] = e == 3 ? 0.f : ANALYTIC ? r[C_IGRAD + e] : omax;
         }
       }
       __syncthreads();
 
       for (int g0 = 0; g0 < n; g0 += GROUP) {
         const int nv = min(GROUP, n - g0);
-        float zrow[NS], zmin_s[NS];
-        bool hit_s[NS];
-        float covmax = 0.f;
-        for (int s = 0; s < NS; ++s) {
-          zrow[s] = zbuf[s * NPIX + tid];
-          zmin_s[s] = 2.f;
-          hit_s[s] = false;
+        float zmin[PPT][NS], covmax[PPT], best_z[PPT];
+        int hit[PPT], best_j[PPT];
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          for (int s = 0; s < NS; ++s) zmin[k][s] = 2.f;
+          hit[k] = 0;
+          covmax[k] = 0.f;
+          best_z[k] = 2.f;
+          best_j[k] = -1;
         }
-        float best_z = 2.f;
-        int best_j = -1;
         for (int j = 0; j < nv; ++j) {
-          const float* r = rows + (g0 + j) * ROW_W;
-          const float e0 = (r[0] * xs + r[2]) + r[1] * ys;
-          const float e1 = (r[3] * xs + r[5]) + r[4] * ys;
-          const float e2 = (r[6] * xs + r[8]) + r[7] * ys;
-          const float zz = (r[C_Z] * xs + r[C_Z + 2]) + r[C_Z + 1] * ys;
-          bool any_pass = false;
-          if (ANALYTIC) {
-            const float cov = (fminf(fmaxf(e0 * r[C_IGRAD] + 0.5f, 0.f), 1.f)
-                               * fminf(fmaxf(e1 * r[C_IGRAD + 1] + 0.5f, 0.f), 1.f))
-                              * fminf(fmaxf(e2 * r[C_IGRAD + 2] + 0.5f, 0.f), 1.f);
-            any_pass = cov > 0.f && zz <= zrow[0] && zz >= 0.f;
-            const float mn = fminf(fminf(e0, e1), fminf(e2, zz));
-            if (mn >= 0.f && zz <= zrow[0]) zmin_s[0] = fminf(zmin_s[0], zz);
-            if (any_pass) covmax = fmaxf(covmax, cov);
-          } else {
-            const float* o = offs + (g0 + j) * 16;
+          const float4* q = reinterpret_cast<const float4*>(sm.prep + (g0 + j) * PREP_W);
+          float e0[PPT], e1[PPT], e2[PPT], zz[PPT];
+          bool any_pass[PPT], live[PPT], any_live = false;
+          {
+            const float4 P0 = q[0], P1 = q[1], P2 = q[2], P3 = q[3];
+            const float ax0 = P0.x * xs, ax1 = P1.x * xs, ax2 = P2.x * xs, axz = P3.x * xs;
+#pragma unroll
+            for (int k = 0; k < PPT; ++k) {
+              e0[k] = (ax0 + P0.z) + P0.y * ys[k];
+              e1[k] = (ax1 + P1.z) + P1.y * ys[k];
+              e2[k] = (ax2 + P2.z) + P2.y * ys[k];
+              zz[k] = (axz + P3.z) + P3.y * ys[k];
+              any_pass[k] = false;
+              if (ANALYTIC) {
+                const float cov = (fminf(fmaxf(e0[k] * P0.w + 0.5f, 0.f), 1.f)
+                                   * fminf(fmaxf(e1[k] * P1.w + 0.5f, 0.f), 1.f))
+                                  * fminf(fmaxf(e2[k] * P2.w + 0.5f, 0.f), 1.f);
+                any_pass[k] = cov > 0.f && zz[k] <= zbuf[k][0] && zz[k] >= 0.f;
+                const float mn = fminf(fminf(e0[k], e1[k]), fminf(e2[k], zz[k]));
+                if (mn >= 0.f && zz[k] <= zbuf[k][0]) zmin[k][0] = fminf(zmin[k][0], zz[k]);
+                if (any_pass[k]) covmax[k] = fmaxf(covmax[k], cov);
+              } else {
+                // a pixel outside an edge at every sample fails them all:
+                // e + o <= e + omax < 0 for each sample offset o, as
+                // rounding is monotonic
+                live[k] = !(e0[k] + P0.w < 0.f || e1[k] + P1.w < 0.f || e2[k] + P2.w < 0.f);
+                any_live = any_live || live[k];
+              }
+            }
+          }
+          if (!ANALYTIC && any_live) {
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
-              const float zs = zz + o[s * 4 + 3];
-              const float mn = fminf(fminf(e0 + o[s * 4], e1 + o[s * 4 + 1]),
-                                     fminf(e2 + o[s * 4 + 2], zs));
-              if (mn >= 0.f && zs <= zrow[s]) {
-                zmin_s[s] = fminf(zmin_s[s], zs);
-                hit_s[s] = true;
-                any_pass = true;
+              const float4 o = q[PREP_OFF / 4 + s];
+#pragma unroll
+              for (int k = 0; k < PPT; ++k) {
+                const float zs = zz[k] + o.w;
+                const float mn = fminf(fminf(e0[k] + o.x, e1[k] + o.y), fminf(e2[k] + o.z, zs));
+                if (live[k] && mn >= 0.f && zs <= zbuf[k][s]) {
+                  zmin[k][s] = fminf(zmin[k][s], zs);
+                  hit[k] |= 1 << s;
+                  any_pass[k] = true;
+                }
               }
             }
           }
           // winner: latest-drawn pair at minimum centre z
-          if (any_pass && zz <= best_z) {
-            best_z = zz;
-            best_j = j;
+#pragma unroll
+          for (int k = 0; k < PPT; ++k)
+            if (any_pass[k] && zz[k] <= best_z[k]) {
+              best_z[k] = zz[k];
+              best_j[k] = j;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (depth_write)
+            for (int s = 0; s < NS; ++s) zbuf[k][s] = fminf(zbuf[k][s], zmin[k][s]);
+          if (ANALYTIC) won_a[k] = fmaxf(won_a[k], covmax[k]);
+          else bits[k] |= hit[k];
+          if (best_j[k] >= 0 && best_z[k] <= gz[k] && best_z[k] < 2.f) {
+            gz[k] = best_z[k];
+            gidx[k] = start + c0 + g0 + best_j[k];
           }
-        }
-        for (int s = 0; s < NS; ++s) {
-          if (depth_write) zbuf[s * NPIX + tid] = fminf(zrow[s], zmin_s[s]);
-          float* w = won + s * NPIX + tid;
-          *w = ANALYTIC ? fmaxf(*w, covmax) : (hit_s[s] ? fmaxf(*w, 1.f) : *w);
-        }
-        float* gz = gbuf + G_Z * NPIX + tid;
-        if (best_j >= 0 && best_z <= *gz && best_z < 2.f) {
-          const float* r = rows + (g0 + best_j) * ROW_W;
-          *gz = best_z;
-          gbuf[G_ALPHA * NPIX + tid] = r[C_ALPHA];
-          if (!outline)
-            for (int ch = 0; ch < 6; ++ch)
-              gbuf[(G_UIW + ch) * NPIX + tid] =
-                  (r[C_ATTR + ch] * xs + r[C_ATTR + 12 + ch]) + r[C_ATTR + 6 + ch] * ys;
         }
       }
     }
 
     // push the pass's fragments onto the two-layer stack
-    float cover = 0.f;
-    for (int s = 0; s < NS; ++s) cover = cover + won[s * NPIX + tid];
-    cover = cover * (float)(1.0 / NS);
-    float attrs[6];
-    for (int ch = 0; ch < 6; ++ch) attrs[ch] = gbuf[(G_UIW + ch) * NPIX + tid];
-    const float gz = gbuf[G_Z * NPIX + tid];
-    push_winner(stack, tid, stencil[tid], gz < 2.f, cover, gbuf[G_ALPHA * NPIX + tid], attrs,
-                gz, p);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      float cover = 0.f;
+      for (int s = 0; s < NS; ++s)
+        cover = cover + (ANALYTIC ? won_a[k] : (float)((bits[k] >> s) & 1));
+      cover = cover * (float)(1.0 / NS);
+      const bool hit = gz[k] < NO_HIT;
+      const float code = hit ? __ldg(a.rows + (size_t)gidx[k] * ROW_W + C_ALPHA) : 0.f;
+      push_ref(sm.stack[0][tid + k * NTHREADS], sm.stack[1][tid + k * NTHREADS], bits[k], hit,
+               cover, code, gidx[k] * 8 + p, gz[k], p);
+    }
   }
 
-  // shade both layers in place; the G-buffer is free now (its first two
-  // channels hold the neighbour exchange of u, v)
-  shade_tile(stack, gbuf, gbuf + NPIX, tid, bi, bj, a.sp, a.out);
+  // shade both layers; the ring's first stage holds the u, v exchange
+  float* su = sm.ring[0];
+  float* sv = su + NPIX;
+  const size_t plane = (size_t)a.sp.hp * a.sp.wp;
+  for (int layer = 0; layer < 2; ++layer) {
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) any = any || sm.stack[layer][tid + k * NTHREADS].a > 0.f;
+    // also: every thread is done with the ring and the previous layer's u, v
+    const int any_present = __syncthreads_or(any);
+    float u[PPT], v[PPT], inv_iw[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const Layer l = sm.stack[layer][tid + k * NTHREADS];
+      const int py = py0 + k * ROW_STEP;
+      float* o = a.out + (size_t)layer * O_CH * plane
+                 + (size_t)(bi * TILE_H + py) * a.sp.wp + bj * TILE_W + px;
+      o[O_AEFF * plane] = l.a;
+      if (!any_present) {
+        for (int ch = 0; ch < O_AEFF; ++ch) o[ch * plane] = ch == O_TEX ? -1.f : 0.f;
+        continue;
+      }
+      float stk[L_CH];
+      layer_channels(a.rows, l, xs, ys[k], x0f, y0f, stk);
+      inv_iw[k] = 1.f / fmaxf(stk[L_IW], (float)1e-8);
+      u[k] = stk[L_UIW] * inv_iw[k];
+      v[k] = stk[L_VIW] * inv_iw[k];
+      su[py * TILE_W + px] = u[k];
+      sv[py * TILE_W + px] = v[k];
+    }
+    if (!any_present) continue;  // uniform over the block
+    if (sp.n_levels > 0) __syncthreads();
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int py = py0 + k * ROW_STEP;
+      float du_x = 0.f, du_y = 0.f, dv_x = 0.f, dv_y = 0.f;
+      if (sp.n_levels > 0) {
+        // in-tile differences, wrapping at the tile edges
+        const int right = py * TILE_W + ((px + 1) % TILE_W);
+        const int left = py * TILE_W + ((px + TILE_W - 1) % TILE_W);
+        const int down = ((py + 1) % TILE_H) * TILE_W + px;
+        const int up = ((py + TILE_H - 1) % TILE_H) * TILE_W + px;
+        du_x = tile_fd(u[k], su[right], su[left]);
+        du_y = tile_fd(u[k], su[down], su[up]);
+        dv_x = tile_fd(v[k], sv[right], sv[left]);
+        dv_y = tile_fd(v[k], sv[down], sv[up]);
+      }
+      float stk[L_CH];
+      layer_channels(a.rows, sm.stack[layer][tid + k * NTHREADS], xs, ys[k], x0f, y0f, stk);
+      const float xg = ((float)px + x0f) + 0.5f, yg = ((float)py + y0f) + 0.5f;
+      float res[O_AEFF];
+      shade_pixel(stk, u[k], v[k], inv_iw[k], du_x, du_y, dv_x, dv_y, xg, yg, layer, sp, res);
+      float* o = a.out + (size_t)layer * O_CH * plane
+                 + (size_t)(bi * TILE_H + py) * a.sp.wp + bj * TILE_W + px;
+      for (int ch = 0; ch < O_AEFF; ++ch) o[ch * plane] = res[ch];
+    }
+  }
 }
 
 template <int NS, bool ANALYTIC>
 void launch(const FrameArgs& a, int n_tiles, cudaStream_t stream) {
-  const int smem = smem_floats(NS) * (int)sizeof(float);
-  cudaFuncSetAttribute(frame_kernel<NS, ANALYTIC>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  frame_kernel<NS, ANALYTIC><<<n_tiles, NPIX, smem, stream>>>(a);
+  static bool configured = false;  // the attribute holds for the process
+  if (!configured) {
+    cudaFuncSetAttribute(frame_kernel<NS, ANALYTIC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+    configured = true;
+  }
+  frame_kernel<NS, ANALYTIC><<<n_tiles, NTHREADS, sizeof(Smem), stream>>>(a);
 }
 
 }  // namespace
@@ -206,7 +464,9 @@ extern "C" int reze_frame(const float* rows, const int* starts, const int* count
                           n_levels, hp, wp}};
   const int n_tiles = (hp / TILE_H) * (wp / TILE_W);
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (n_tiles <= 0 || kr > MAX_GROUPS || kt > MAX_GROUPS || ke > MAX_GROUPS
+      || tex_cols > MAX_TEX_COLS || ((uintptr_t)rows & 15) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
   if (analytic) {
     launch<1, true>(a, n_tiles, st);
   } else {

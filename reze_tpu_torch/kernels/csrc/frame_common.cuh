@@ -1,8 +1,10 @@
 // What the frame megakernels share: the 8x128 tile, the 40-float pair row,
-// the sample pattern, the seven passes' fixed-function state, the push of a
-// pass's winner onto the two-layer stack (frame.cu, frame_hybrid.cu,
-// frame_mxu.cu) and the shade of a tile's stack after the last pass
-// (frame.cu, frame_hybrid.cu). Compiled with -fmad=false, as every file here.
+// the sample pattern, the seven passes' fixed-function state, and for the
+// kernels that keep the stack in shared memory the push of a pass's winner
+// onto it (frame_hybrid.cu, frame_mxu.cu) and the shade of a tile's stack
+// after the last pass (frame_hybrid.cu); frame.cu keeps references to rows
+// instead and has its own forms of both. Compiled with -fmad=false, as
+// every file here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,12 +1,13 @@
 // Toon/rim shade of one pixel of one stack layer: the CUDA form of
 // reze_tpu_torch/kernels/shade_gpu.py::shade_layer (itself the port of
-// reze_tpu/kernels/shade_tpu.py::_shade_layer). Inlined by frame.cu after
-// the last raster pass, so the stack never leaves shared memory.
+// reze_tpu/kernels/shade_tpu.py::_shade_layer). Inlined by the frame
+// kernels after the last raster pass and by the stack shade.
 //
 // Every float operation mirrors the torch twin's order, and the file is
 // compiled with -fmad=false, so products and sums round separately as in
 // the twin. Division and sqrt are IEEE (no fast-math); 1/sqrt stands in
-// for rsqrt on both sides.
+// for rsqrt on both sides. One exception keeps the bits: the toon ramp
+// sums only the two knots whose hat weight can be nonzero (see the ramp).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +15,11 @@
 namespace reze {
 
 constexpr int N_KNOTS = 9;
+// table sizes the kernels stage in shared memory (shade_gpu.check_shade_args)
+constexpr int MAX_GROUPS = 16;
+constexpr int MAX_TEX_COLS = 20;
+constexpr int SHADE_SMEM_FLOATS =
+    MAX_GROUPS * (3 * N_KNOTS + MAX_TEX_COLS + 3) + 12 + 12 + 8 + 16;
 
 // layer-stack channels (per layer)
 constexpr int L_UIW = 0, L_VIW = 1, L_NXIW = 2, L_NYIW = 3, L_NZIW = 4, L_IW = 5,
@@ -35,6 +41,29 @@ struct ShadeParams {
   const float* inv_vp;  // (4, 4)
   int kr, kt, tex_cols, ke, n_levels, hp, wp;
 };
+
+// Copy the shade tables into dst (SHADE_SMEM_FLOATS floats of shared
+// memory), each of the block's nthreads threads a share; -> the same
+// parameters reading from there. Visible after the caller's next
+// __syncthreads.
+__device__ __forceinline__ ShadeParams stage_shade_params(const ShadeParams& g, float* dst,
+                                                          int tid, int nthreads) {
+  ShadeParams s = g;
+  float* d = dst;
+  auto copy = [&](const float*& tab, int n) {
+    for (int i = tid; i < n; i += nthreads) d[i] = tab[i];
+    tab = d;
+    d += n;
+  };
+  copy(s.knot, g.kr * 3 * N_KNOTS);
+  copy(s.tex, g.kt * g.tex_cols);
+  copy(s.edge, g.ke * 3);
+  copy(s.ldir, 12);
+  copy(s.lcol, 12);
+  copy(s.misc, 8);
+  copy(s.inv_vp, 16);
+  return s;
+}
 
 // value of a tiny group table at an integral float id; ids outside the
 // table give `init`
@@ -99,19 +128,27 @@ __device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, 
   const float dy = (y0 + 1.f <= hl - 1.f) ? stride : 0.f;
   const float texidx = (base_l + y0 * stride) + x0;
 
-  // toon ramp: 9-knot hat basis over four lights plus ambient
+  // toon ramp: 9-knot hat basis over four lights plus ambient. The twin
+  // sums all nine knots in order from t = +0; a knot whose hat weight is 0
+  // adds a signed zero, which leaves t's bits as they are (t is never -0),
+  // so for finite knots the sum of the knots at floor(f) and floor(f) + 1
+  // in that order has the same bits. An unknown group's knots are 0.
   const float ramp_gid = stk[L_RAMP];
+  const bool ramp_ok = ramp_gid >= 0.f && ramp_gid < (float)sp.kr;
+  const float* knots = sp.knot + (ramp_ok ? (int)ramp_gid : 0) * (N_KNOTS * 3);
   const float ambient = sp.misc[0];
   float acc[3] = {ambient, ambient, ambient};
   for (int li = 0; li < 4; ++li) {
     const float* ld = sp.ldir + li * 3;
     const float ndotl = fmaxf(-((nx * ld[0] + ny * ld[1]) + nz * ld[2]), 0.f);
-    const float f = ndotl * (float)(N_KNOTS - 1);
+    const float f = ndotl * (float)(N_KNOTS - 1);  // >= 0
     float t[3] = {0.f, 0.f, 0.f};
-    for (int s = 0; s < N_KNOTS; ++s) {
-      const float w_hat = fmaxf(1.f - fabsf(f - (float)s), 0.f);
-      for (int c = 0; c < 3; ++c)
-        t[c] = t[c] + group_sel(ramp_gid, sp.knot, sp.kr, N_KNOTS * 3, s * 3 + c, 0.f) * w_hat;
+    if (ramp_ok && f < (float)N_KNOTS) {
+      const int s0 = (int)floorf(f);
+      for (int s = s0; s <= s0 + 1 && s < N_KNOTS; ++s) {
+        const float w_hat = fmaxf(1.f - fabsf(f - (float)s), 0.f);
+        for (int c = 0; c < 3; ++c) t[c] = t[c] + knots[s * 3 + c] * w_hat;
+      }
     }
     for (int c = 0; c < 3; ++c) acc[c] = acc[c] + t[c] * (sp.lcol[li * 3 + c] * ndotl);
   }

@@ -219,6 +219,8 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
     if analytic:
         n_samples = 1
     check_frame_tables(tables, hp, wp, n_samples)
+    if tables.rows.data_ptr() % 16:
+        raise ValueError("rows: the kernel copies them in 16-byte units; need an aligned tensor")
     dev = tables.rows.device
     lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
     SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)

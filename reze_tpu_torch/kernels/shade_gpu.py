@@ -44,6 +44,9 @@ O_LR, O_LG, O_LB, O_RIM, O_TEX, O_DXDY, O_FX, O_FY, O_AEFF = range(9)
 O_CH = 9
 
 MAX_GROUPS = 16  # 4-bit group fields in the packed material code
+# texture-table columns the kernels stage in shared memory: [h, w, base,
+# valid] and up to 16 mip bases (csrc/shade.cuh)
+MAX_TEX_COLS = 20
 
 
 class ShadeTables(NamedTuple):
@@ -223,18 +226,16 @@ def shade_layer(stk: list[Tensor], knot_tab: Tensor, tex_tab: Tensor,
 def shade_inputs(shade_tables: ShadeTables, lights, rim_intensity: float,
                  eye_pos: Tensor, lod_bias) -> tuple[Tensor, Tensor]:
     """-> (lcol (4, 3), misc (8,)): misc = [ambient, rim, eye xyz, atlas
-    stride, lod bias layer 0, lod bias layer 1]."""
+    stride, lod bias layer 0, lod bias layer 1]. The host's numbers reach
+    the device as fills, not copies, which would wait for the stream."""
     dev = eye_pos.device
     active = (torch.arange(4, device=dev) < lights.count).to(torch.float32)[:, None]
     lcol = lights.color * lights.intensity[:, None] * active
-    misc = torch.stack([
-        lights.ambient.to(torch.float32).reshape(()),
-        torch.tensor(rim_intensity, dtype=torch.float32, device=dev),
-        eye_pos[0], eye_pos[1], eye_pos[2],
-        torch.tensor(float(shade_tables.atlas_stride), device=dev),
-        torch.tensor(float(lod_bias[0]), device=dev),
-        torch.tensor(float(lod_bias[1]), device=dev),
-    ])
+    rim, stride, bias0, bias1 = (
+        torch.full((1,), float(x), dtype=torch.float32, device=dev)
+        for x in (rim_intensity, shade_tables.atlas_stride, *lod_bias))
+    misc = torch.cat([lights.ambient.to(torch.float32).reshape(1), rim, eye_pos[:3], stride,
+                      bias0, bias1])
     return lcol.contiguous(), misc.contiguous()
 
 
@@ -270,8 +271,11 @@ def check_shade_args(shade_tables: ShadeTables, lights, lcol: Tensor, misc: Tens
     if tuple(inv_vp.shape) != (4, 4) or tuple(lights.direction.shape) != (4, 3):
         raise ValueError("inv_vp must be (4, 4) and light directions (4, 3)")
     if (shade_tables.knot_tab.shape[1] != 3 * N_KNOTS or shade_tables.edge_tab.shape[1] != 3
-            or shade_tables.tex_tab.shape[1] < 4):
-        raise ValueError("shade tables: need knot (Kr, 27), edge (Ke, 3), tex (Kt, >= 4)")
+            or not 4 <= shade_tables.tex_tab.shape[1] <= MAX_TEX_COLS
+            or max(shade_tables.knot_tab.shape[0], shade_tables.tex_tab.shape[0],
+                   shade_tables.edge_tab.shape[0]) > MAX_GROUPS):
+        raise ValueError(f"shade tables: need knot (Kr, 27), edge (Ke, 3), tex (Kt, 4 to "
+                         f"{MAX_TEX_COLS}) with at most {MAX_GROUPS} groups each")
 
 
 def shade_stack(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity: float,
@@ -289,9 +293,9 @@ def shade_stack(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity:
     hp, wp = stack.shape[-2:]
     if (stack.dtype != torch.float32 or not stack.is_contiguous()
             or tuple(stack.shape) != (2 * L_CH, hp, wp)
-            or hp % STACK_TILE_H or wp % STACK_TILE_W):
-        raise ValueError(f"stack: need a contiguous float32 ({2 * L_CH}, hp, wp) of whole "
-                         f"32x128 tiles, got {stack.dtype} {tuple(stack.shape)}")
+            or hp % STACK_TILE_H or wp % STACK_TILE_W or stack.data_ptr() % 16):
+        raise ValueError(f"stack: need a contiguous, 16-byte aligned float32 ({2 * L_CH}, hp, "
+                         f"wp) of whole 32x128 tiles, got {stack.dtype} {tuple(stack.shape)}")
     lcol, misc = shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
     check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0

@@ -249,10 +249,12 @@ def random_pass_inputs(seed: int, n_tris: tuple[int, ...], n_groups: int = 3):
     return out
 
 
-def _random_pass_parts(seed: int, n_tris: tuple[int, ...], hp: int, wp: int, device):
+def _random_pass_parts(seed: int, n_tris: tuple[int, ...], hp: int, wp: int, device,
+                       pairs_per_tri: float = 4.0):
     """Per pass, ``frame_gpu.pack_pass_part``'s output for
-    :func:`random_pass_inputs`, with the engine's per-pass culling and pair
-    capacity."""
+    :func:`random_pass_inputs`, with the engine's per-pass culling and, by
+    default, its pair capacity (``pairs_per_tri`` pairs per triangle plus
+    1024)."""
     import torch
 
     from .kernels import frame_gpu as FG
@@ -263,7 +265,7 @@ def _random_pass_parts(seed: int, n_tris: tuple[int, ...], hp: int, wp: int, dev
     for (_, cull, outline), d in zip(_PASS_SPECS, random_pass_inputs(seed, n_tris)):
         t = {k: torch.as_tensor(v, device=device) for k, v in d.items()}
         tri = raster.setup_triangles(t["corners_clip"], t["valid"], wp, hp, cull)
-        cap = -(-int(len(d["valid"]) * 4.0 + 1024) // FG.CHUNK) * FG.CHUNK
+        cap = -(-int(len(d["valid"]) * pairs_per_tri + 1024) // FG.CHUNK) * FG.CHUNK
         parts.append(FG.pack_pass_part(
             tri, t["corner_uv"], t["corner_nrm"], t["alpha"], t["is_hair"], t["ramp"],
             t["tex"], t["edge"], hp // FG.TILE_H, wp // FG.TILE_W, cap,
@@ -272,13 +274,15 @@ def _random_pass_parts(seed: int, n_tris: tuple[int, ...], hp: int, wp: int, dev
 
 
 def random_frame_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
-                        device="cuda"):
+                        device="cuda", pairs_per_tri: float = 4.0):
     """Frame-kernel tables (``frame_gpu.FrameTables``) for an
     (hp, wp) frame from :func:`random_pass_inputs`, packed with the
-    engine's per-pass culling and pair capacity."""
+    engine's per-pass culling and pair capacity. The triangles span a fixed
+    share of the frame, so a large frame needs a larger ``pairs_per_tri``
+    than the engine's 4 to hold every pair (``overflow`` counts the rest)."""
     from .kernels import frame_gpu as FG
 
-    parts = _random_pass_parts(seed, n_tris, hp, wp, device)
+    parts = _random_pass_parts(seed, n_tris, hp, wp, device, pairs_per_tri)
     return FG.pack_frame_rows(parts, hp // FG.TILE_H, wp // FG.TILE_W)
 
 
