@@ -17,10 +17,12 @@ Phases, each printed on its own line:
    raster-pass and stack-shade kernels on the seeded tables and stack of
    the CPU tests (64x256) and on the 1080p frame's own seven pass tables
    and stack; the hybrid, mxu and stream kernels on the CPU tests' seeded
-   tables and on the 1080p frame's own tables; (3e) the frame kernel on a
-   64x1024 crop of a dense table set at the main path's shape (hundreds of
-   pairs per tile and pass) and the stack shade on a whole stack with both
-   layers present in every tile;
+   tables and on the 1080p frame's own tables; (3e) the frame and hybrid
+   kernels on a 64x1024 crop of a dense table set at the main path's shape
+   (hundreds of pairs per tile and pass) in both coverage modes, the raster
+   pass on a 256x1024 crop of a dense raster table set (its seven passes
+   chained) and the stack shade on a whole stack with both layers present
+   in every tile;
 4. the six render paths of ``make_step`` at 1920x1080, physics off, on
    the synthetic model with the camera close enough that its quads span
    the frame height, 5 frames each: the main path (default
@@ -34,10 +36,11 @@ Phases, each printed on its own line:
    state-carrying steps, the six paths twice in turns in one call), and
    each kernel's device time (torch.profiler's records of its launches)
    next to its twin's (CUDA events) at the 1080p shapes, with its bound;
-   (5b) the frame kernel and the stack shade on three input sets at the
-   main path's shape: its own inputs, empty ones and the dense set, each
-   with its bound and the share of the bound, and the time of the whole
-   call (CUDA events, host work included);
+   (5b) the frame, hybrid and raster-pass kernels and the stack shade on
+   three input sets at the main path's shape: its own inputs, empty ones
+   and the dense set (the raster pass per launch over its seven chained
+   passes), each with its bound and the share of the bound, and the time
+   of the whole call (CUDA events, host work included);
 6. each path's step at 256x128 on the GPU against the step on the CPU
    (where the kernels' twins run);
 7. only with ``--profile``: each path's 1080p step under ``torch.profiler``
@@ -68,6 +71,9 @@ W, H = 1920, 1080
 DENSE_SEED = 3
 DENSE_TRIS = 4000
 DENSE_PAIRS_PER_TRI = 160
+# pair slots per triangle of the dense raster set (32x128 tiles: about 30
+# pairs per triangle at 1088x1920)
+DENSE_RASTER_PAIRS_PER_TRI = 40
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
 HBM_BPS = 3.35e12
@@ -361,6 +367,32 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                      + nbytes(tabs.starts, tabs.counts, *shade_tables[1:4], out),
                      pairs * FG.TILE_H * FG.TILE_W * walk + 2 * out[0].numel() * SHADE_OPS)
 
+    s = cfg.msaa_samples
+    walk_ops = PLANE_OPS + SAMPLE_OPS * s
+    band_px = RG.BAND_H * RG.TILE_W
+
+    def raster_bound(tabs):
+        """The raster pass's, per launch over the seven chained passes from
+        a cleared depth buffer: per pass the pairs' ids, the rows they name,
+        the starts and counts in; depths in only in the 8-row bands that
+        some pair's y range touches, and out only where they change; the
+        G-buffer out; per touched band and pair the walk of its pixels.
+        -> (bound, touched band fraction of each pass)"""
+        z = torch.ones((s, dims.hp, dims.wp), device=dev)
+        nb, ops, frac = 0, 0, []
+        for tb, (dw, attrs) in zip(tabs, pchain):
+            n = int(tb.counts.sum())
+            touched_tb, pair_bands = testing.touched_bands(tb, dims.wp)
+            touched = int(touched_tb.sum())
+            frac.append(round(touched / (dims.b * RG.BANDS), 4))
+            z_before = z.clone()
+            z, g = RG.raster_pass(tb, z, bx=dims.bx, depth_write=dw, with_attrs=attrs)
+            nb += (n * 4 + int(torch.unique(tb.ids[:n]).numel()) * RG.ROW_W * 4
+                   + nbytes(tb.starts, tb.counts) + touched * band_px * s * 4
+                   + int((z != z_before).sum()) * 4 + nbytes(g))
+            ops += pair_bands * band_px * walk_ops
+        return bound(nb / FG.N_PASSES, ops / FG.N_PASSES), frac
+
     def present_tiles(stk):
         """Per layer, the 32x128 tiles where it has a fragment."""
         hp_, wp_ = stk.shape[-2:]
@@ -439,6 +471,42 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         dargs = (crop_ft, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
         check_exact("frame", f"dense_crop_{crop_hw}_{name}", FG.render_megakernel(*dargs, **kw),
                     FG.render_megakernel_twin(*dargs, **kw))
+        check_exact("hybrid", f"dense_crop_{crop_hw}_{name}",
+                    FH.render_megakernel_hybrid(*dargs, **kw),
+                    FH.render_megakernel_hybrid_twin(*dargs, **kw))
+    # the raster pass: the dense raster set's seven passes on a crop of
+    # 32x128 tiles, moved so that the crop's origin is the frame's
+    dense_rt = testing.random_raster_tables(DENSE_SEED, (DENSE_TRIS,) * FG.N_PASSES, dims.hp,
+                                            dims.wp, device=dev,
+                                            cap=DENSE_TRIS * DENSE_RASTER_PAIRS_PER_TRI)
+    rty, rtx = dims.hp // RG.TILE_H, dims.wp // RG.TILE_W
+    phase("dense", raster=f"{dims.hp}x{dims.wp}", pairs=[int(tb.counts.sum()) for tb in dense_rt],
+          overflow=[int(tb.overflow) for tb in dense_rt],
+          mean_pairs_per_tile=[round(tb.counts.float().mean().item(), 1) for tb in dense_rt],
+          max_pairs=[int(tb.counts.max()) for tb in dense_rt])
+    require(all(int(tb.overflow) == 0 for tb in dense_rt), "dense raster set overflow")
+    rcy, rcx = min(8, rty), min(8, rtx)
+    rr0, rc0 = (rty - rcy) // 2, (rtx - rcx) // 2
+
+    def crop_raster(tb):
+        x_off, y_off = float(rc0 * RG.TILE_W), float(rr0 * RG.TILE_H)
+        tab = tb.tab.clone()
+        planes = ([(i, 3 + i, 6 + i) for i in range(3)] + [(RG.C_Z, RG.C_Z + 1, RG.C_Z + 2)]
+                  + [(RG.C_ATTR + ch, RG.C_ATTR + 6 + ch, RG.C_ATTR + 12 + ch)
+                     for ch in range(6)])
+        for ca, cb, cc in planes:  # columns of a, b, c
+            tab[:, cc] += tab[:, ca] * x_off + tab[:, cb] * y_off
+        tab[:, RG.C_YMIN:RG.C_YMAX + 1] -= y_off
+        tab[:, RG.C_YMAX + 1:RG.C_YMAX + 3] -= x_off
+
+        def cut(v):
+            return v.reshape(rty, rtx)[rr0:rr0 + rcy, rc0:rc0 + rcx].reshape(-1).contiguous()
+
+        return tb._replace(tab=tab, starts=cut(tb.starts), counts=cut(tb.counts))
+
+    rhp, rwp = rcy * RG.TILE_H, rcx * RG.TILE_W
+    check_raster([crop_raster(tb) for tb in dense_rt], pchain, cfg.msaa_samples, rhp, rwp,
+                 f"dense_crop_{rhp}x{rwp}")
     dense_stack = testing.random_stack(DENSE_SEED, dims.hp, dims.wp, empty_tiles=(), device=dev)
     dsa = (dense_stack, rtab, lights, 0.45, t("eye_pos"), t("inv_vp"))
     for mips in (True, False):
@@ -519,8 +587,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     c_t = (c_t0 + cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)) / 2
     zbuf = torch.ones((cfg.msaa_samples, dims.hp, dims.wp), device=dev)
 
-    def raster_chain(fn):
-        for tb, (dw, attrs) in zip(ptabs, pchain):
+    def raster_chain(fn, tabs=ptabs):
+        """The seven passes of a frame from a cleared depth buffer."""
+        zbuf.fill_(1.0)
+        for tb, (dw, attrs) in zip(tabs, pchain):
             fn(tb, zbuf, bx=dims.bx, depth_write=dw, with_attrs=attrs)
 
     r_t0 = cuda_ms(lambda: raster_chain(RG.raster_pass_twin), 1) / FG.N_PASSES
@@ -548,18 +618,31 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           **{f"{k}_{w}ms": f"{v[i]:.4f}" for k, v in new_ms.items()
              for i, w in ((0, ""), (1, "twin_"))})
 
-    # 5b. the frame kernel and the stack shade on three input sets at the
-    # main path's shapes: (a) the main path's own inputs, (b) empty ones
-    # (every count 0; no fragment in the stack), which leave only the fixed
-    # per-tile cost, (c) the dense set of phase 3e; each beside its bound
+    # 5b. the frame, hybrid and raster-pass kernels and the stack shade on
+    # three input sets at the main path's shapes: (a) the main path's own
+    # inputs, (b) empty ones (every count 0; no fragment in the stack),
+    # which leave only the fixed per-tile cost, (c) the dense sets of phase
+    # 3e; each beside its bound
     for label, tabs, shtab in (("main", ft, tables),
                                ("empty", ft._replace(counts=torch.zeros_like(ft.counts)), tables),
                                ("dense", dense_ft, rtab)):
         fa = (tabs, shtab, lights, cfg.rim_light_intensity, eye, inv_vp)
-        ms = kernel_ms(lambda: FG.render_megakernel(*fa, **fkw), N_TIMED, "frame_kernel")
-        call = cuda_ms(lambda: FG.render_megakernel(*fa, **fkw), N_TIMED)
-        b = frame_bound(tabs, shtab, FG.render_megakernel(*fa, **fkw))
-        phase("set", kernel="frame", set=label, card=smi, pairs=int(tabs.counts.sum()),
+        for kname, fn in (("frame", FG.render_megakernel), ("hybrid", FH.render_megakernel_hybrid)):
+            ms = kernel_ms(lambda: fn(*fa, **fkw), N_TIMED, f"{kname}_kernel")
+            call = cuda_ms(lambda: fn(*fa, **fkw), N_TIMED)
+            b = frame_bound(tabs, shtab, fn(*fa, **fkw))
+            phase("set", kernel=kname, set=label, card=smi, pairs=int(tabs.counts.sum()),
+                  ms=f"{ms:.4f}", call_ms=f"{call:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
+                  share=f"{b[0] / ms:.3f}")
+    for label, rtabs_set in (("main", ptabs),
+                             ("empty", [tb._replace(counts=torch.zeros_like(tb.counts))
+                                        for tb in ptabs]),
+                             ("dense", dense_rt)):
+        ms = kernel_ms(lambda: raster_chain(RG.raster_pass, rtabs_set), N_TIMED, "raster_kernel")
+        call = cuda_ms(lambda: raster_chain(RG.raster_pass, rtabs_set), N_TIMED) / FG.N_PASSES
+        b, touched_frac = raster_bound(rtabs_set)
+        phase("set", kernel="raster_pass", set=label, card=smi,
+              pairs=[int(tb.counts.sum()) for tb in rtabs_set], touched_band_frac=touched_frac,
               ms=f"{ms:.4f}", call_ms=f"{call:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
               share=f"{b[0] / ms:.3f}")
     for label, stk, shtab in (("main", stack, tables), ("empty", torch.zeros_like(stack), tables),
@@ -574,8 +657,6 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
 
     # bounds from this run's inputs (see frame_bound)
     p = dims.hp * dims.wp
-    s = cfg.msaa_samples
-    walk_ops = PLANE_OPS + SAMPLE_OPS * s
     frame_pairs = int(ft.counts.sum())  # one row per pair
     b_frame = frame_bound(ft, tables, o_k)
     # the hybrid kernel: the frame kernel's inputs, work and output
@@ -593,26 +674,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
     b_comp = bound((2 * SG.O_CH - 1.5 * half_layers) * p * 4 + nbytes(atlas, img_k, seed_k),
                    p * COMPOSITE_OPS)
-    band_px, bands = RG.BAND_H * RG.TILE_W, torch.arange(RG.BANDS, device=dev)
-    y0 = (torch.arange(dims.b, device=dev) // dims.bx * RG.TILE_H).float()
-    rb_bytes, rb_ops, touched_frac = 0, 0, []
-    for tb, (dw, _) in zip(ptabs, pchain):
-        n = int(tb.counts.sum())
-        tile_of = torch.repeat_interleave(torch.arange(dims.b, device=dev), tb.counts.long())
-        ids = tb.ids[:n].long()
-        b0, b1 = RG._band_range(tb.tab[ids, RG.C_YMIN], tb.tab[ids, RG.C_YMAX], y0[tile_of])
-        # the 8-row bands each pair's y range touches in its tile
-        hit = ((bands >= b0[:, None]) & (bands <= b1[:, None])).float()
-        touched = int((torch.zeros((dims.b, RG.BANDS), device=dev)
-                       .index_add_(0, tile_of, hit) > 0).sum())
-        touched_frac.append(round(touched / (dims.b * RG.BANDS), 4))
-        # the pairs' ids and rows, starts and counts in; depths in (and out
-        # with depth writes) only in bands some pair touches; the G-buffer out
-        rb_bytes += (n * 4 + int(torch.unique(ids).numel()) * RG.ROW_W * 4
-                     + nbytes(tb.starts, tb.counts)
-                     + touched * band_px * s * 4 * (2 if dw else 1) + RG.N_CH * p * 4)
-        rb_ops += int(hit.sum()) * band_px * walk_ops
-    b_raster = bound(rb_bytes / FG.N_PASSES, rb_ops / FG.N_PASSES)
+    b_raster, touched_frac = raster_bound(ptabs)
     # a_eff of both layers everywhere; a layer's other channels only in the
     # 32x128 tiles where it is present (elsewhere its output is fixed); all
     # 18 output planes

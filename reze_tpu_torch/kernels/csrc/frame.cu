@@ -33,7 +33,9 @@
 // record that the walk reads as broadcast 16-byte loads, two pixels per
 // load; a pixel outside an edge at all samples skips the sample tests. A
 // tile with no pair in any pass writes its fixed output and stops. The
-// shade tables are staged in shared memory once per tile.
+// shade tables are staged in shared memory once per tile. All of this but
+// the walk of a chunk is frame_common.cuh's tile design, which the hybrid
+// kernel (frame_hybrid.cu) shares.
 //
 // Compiled with -fmad=false: each product rounds on its own, as in the
 // twin, so coverage and z-ties decide the same way.
@@ -47,15 +49,6 @@ namespace reze {
 namespace {
 
 constexpr int GROUP = 32;
-constexpr int NTHREADS = 512;
-constexpr int PPT = NPIX / NTHREADS;         // pixels per thread
-constexpr int ROW_STEP = NTHREADS / TILE_W;  // rows between a thread's pixels
-// a prepared pair: per plane (edges 0-2, depth) a, b, c at the tile origin
-// and, for an edge, 1/|grad| (analytic) or its largest sample offset
-// (MSAA), then per sample the four plane offsets
-constexpr int PREP_W = 32;
-constexpr int PREP_OFF = 16;
-constexpr float NO_HIT = 2.f;  // pass winner depth before any pair won
 
 struct FrameArgs {
   const float* rows;
@@ -65,138 +58,14 @@ struct FrameArgs {
   ShadeParams sp;
 };
 
-// a stack layer: its winner's row and pass as row * 8 + pass (-1: empty,
-// every channel 0), its depth and effective alpha
-struct Layer {
-  int ref;
-  float z, a;
-};
-
-struct __align__(128) Smem {
-  float ring[2][CHUNK * ROW_W];  // staged rows; ring[0] is the shade's u/v exchange
-  float prep[CHUNK * PREP_W];
-  Layer stack[2][NPIX];  // a pixel's layers, read and written by its thread only
-  float shade[SHADE_SMEM_FLOATS];
-  uint64_t bar[2];
-  int start[N_PASSES], count[N_PASSES];
-};
-
-// --- mbarrier and bulk copy (PTX) ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// one thread: copy n rows from device memory into the ring's stage, the
-// stage's barrier completing when the bytes have landed
-__device__ __forceinline__ void stage_rows(Smem& sm, const float* src, int n, int stage) {
-  const uint32_t bytes = (uint32_t)(n * ROW_W * sizeof(float));
-  const uint32_t bar = smem_addr(&sm.bar[stage]);
-  // the stage's previous rows were read through the generic proxy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(sm.ring[stage])), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// --- per-pixel state -------------------------------------------------------
-
-constexpr int STENCIL_BIT = 1 << 4;  // above the NS <= 4 coverage bits
-
-// The push of one pass's winner (push_winner in frame_common.cuh, on
-// references): opaque fragments clear the stack, translucent ones displace
-// layer 1 into layer 0, a_eff < 0.001 is dropped; hair alpha halves over
-// the stencil, which the eye pass writes.
-__device__ __forceinline__ void push_ref(Layer& l0, Layer& l1, int& bits, bool hit, float cover,
-                                         float code_f, int ref, float z, int p) {
-  const int code = (int)rintf(code_f);
-  float al = (float)(code & 1023) * (float)(1.0 / 1023.0);
-  const int rest = code >> 10;
-  if (PASS_CFG[p][3]) {
-    const float hair = (float)((rest >> 12) & 1);
-    al = al * (((bits & STENCIL_BIT) && hair > 0.5f) ? 0.5f : 1.f);
-  }
-  float a_eff = hit ? al * cover : 0.f;
-  const bool present = a_eff >= (float)0.001;
-  if (!present) a_eff = 0.f;
-  const bool opaque = present && a_eff > (float)0.999;
-  const bool displace = present && !opaque && l1.a > 0.f;
-  if (opaque) l0 = Layer{-1, 0.f, 0.f};
-  else if (displace) l0 = l1;
-  if (present) l1 = Layer{ref, z, a_eff};
-  if (PASS_CFG[p][2] && hit && cover > 0.f) bits |= STENCIL_BIT;
-}
-
-// A layer's L_CH stack channels at tile-local pixel centre (xs, ys): the
-// attribute planes of its row with the constant moved to the tile origin
-// (zero for outline passes), its depth and alpha, its pass's outline flag
-// and its material code's group ids.
-__device__ __forceinline__ void layer_channels(const float* rows, const Layer& l, float xs,
-                                               float ys, float x0f, float y0f, float* stk) {
-  for (int ch = 0; ch < L_CH; ++ch) stk[ch] = 0.f;
-  if (l.ref < 0) return;
-  const float* r = rows + (size_t)(l.ref >> 3) * ROW_W;
-  const int p = l.ref & 7;
-  if (!PASS_CFG[p][0])
-    for (int ch = 0; ch < 6; ++ch) {
-      const float ca = __ldg(r + C_ATTR + ch), cb = __ldg(r + C_ATTR + 6 + ch);
-      const float cc = (__ldg(r + C_ATTR + 12 + ch) + ca * x0f) + cb * y0f;
-      stk[L_UIW + ch] = (ca * xs + cc) + cb * ys;
-    }
-  const int rest = (int)rintf(__ldg(r + C_ALPHA)) >> 10;
-  stk[L_Z] = l.z;
-  stk[L_AEFF] = l.a;
-  stk[L_OUT] = PASS_CFG[p][0] ? 1.f : 0.f;
-  stk[L_RAMP] = (float)(rest & 15);
-  stk[L_TEX] = (float)((rest >> 4) & 15);
-  stk[L_EDGE] = (float)((rest >> 8) & 15);
-}
-
-// the output of a tile where neither layer has a fragment: texel index -1,
-// everything else 0
-__device__ __forceinline__ void store_empty_tile(float* out, int bi, int bj, int hp, int wp,
-                                                 int tid) {
-  const size_t plane = (size_t)hp * wp;
-  constexpr int V = NPIX / 4;  // float4 per plane
-  for (int i = tid; i < 2 * O_CH * V; i += NTHREADS) {
-    const int ch = i / V, k = i % V;
-    const int y = k / (TILE_W / 4), x4 = k % (TILE_W / 4);
-    const float v = (ch % O_CH) == O_TEX ? -1.f : 0.f;
-    float* o = out + ch * plane + (size_t)(bi * TILE_H + y) * wp + bj * TILE_W + 4 * x4;
-    *reinterpret_cast<float4*>(o) = make_float4(v, v, v, v);
-  }
-}
-
 template <int NS, bool ANALYTIC>
 __global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_bytes);
+  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_bytes);
 
   const int tid = threadIdx.x;
   const int px = tid % TILE_W, py0 = tid / TILE_W;
-  const int bx_n = a.sp.wp / TILE_W;
-  const int n_tiles = bx_n * (a.sp.hp / TILE_H);
-  const int b = blockIdx.x;
+  const int bx_n = a.sp.wp / TILE_W, b = blockIdx.x;
   const int bi = b / bx_n, bj = b % bx_n;
   const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
   const float xs = (float)px + 0.5f;  // tile-local
@@ -204,25 +73,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
 #pragma unroll
   for (int k = 0; k < PPT; ++k) ys[k] = (float)(py0 + k * ROW_STEP) + 0.5f;
 
-  if (tid < N_PASSES) {
-    sm.count[tid] = a.counts[tid * n_tiles + b];
-    sm.start[tid] = a.starts[tid * n_tiles + b];
-  }
-  if (tid == 0) {
-    mbar_init(&sm.bar[0]);
-    mbar_init(&sm.bar[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  int first = N_PASSES;
-  for (int p = N_PASSES - 1; p >= 0; --p)
-    if (sm.count[p] > 0) first = p;
-  if (first == N_PASSES) {  // uniform over the block
-    store_empty_tile(a.out, bi, bj, a.sp.hp, a.sp.wp, tid);
-    return;
-  }
-  if (tid == 0) stage_rows(sm, a.rows + (size_t)sm.start[first] * ROW_W,
-                           min(sm.count[first], CHUNK), 0);
+  const int first = begin_tile(sm, a.rows, a.starts, a.counts, a.out, a.sp, tid);
+  if (first == N_PASSES) return;  // uniform over the block
   const ShadeParams sp = stage_shade_params(a.sp, sm.shade, tid, NTHREADS);
 
   float zbuf[PPT][NS];
@@ -253,17 +105,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
     for (int c0 = 0; c0 < count; c0 += CHUNK, ++chunk) {
       const int n = min(count - c0, CHUNK);
       const int stage = chunk & 1;
-      if (tid == 0) {  // the next chunk into the other stage (read before the last barrier)
-        int np = p, nc = c0 + CHUNK;
-        if (nc >= count) {
-          nc = 0;
-          for (np = p + 1; np < N_PASSES && sm.count[np] <= 0; ++np) {
-          }
-        }
-        if (np < N_PASSES)
-          stage_rows(sm, a.rows + (size_t)(sm.start[np] + nc) * ROW_W,
-                     min(sm.count[np] - nc, CHUNK), stage ^ 1);
-      }
+      // the next chunk into the other stage (read before the last barrier)
+      if (tid == 0) stage_next(sm, a.rows, p, count, c0, stage ^ 1);
       __syncthreads();  // the previous chunk's walk is done with prep
       if (tid < n) {
         mbar_wait(&sm.bar[stage], (chunk >> 1) & 1);
@@ -380,63 +223,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
     }
   }
 
-  // shade both layers; the ring's first stage holds the u, v exchange
-  float* su = sm.ring[0];
-  float* sv = su + NPIX;
-  const size_t plane = (size_t)a.sp.hp * a.sp.wp;
-  for (int layer = 0; layer < 2; ++layer) {
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) any = any || sm.stack[layer][tid + k * NTHREADS].a > 0.f;
-    // also: every thread is done with the ring and the previous layer's u, v
-    const int any_present = __syncthreads_or(any);
-    float u[PPT], v[PPT], inv_iw[PPT];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const Layer l = sm.stack[layer][tid + k * NTHREADS];
-      const int py = py0 + k * ROW_STEP;
-      float* o = a.out + (size_t)layer * O_CH * plane
-                 + (size_t)(bi * TILE_H + py) * a.sp.wp + bj * TILE_W + px;
-      o[O_AEFF * plane] = l.a;
-      if (!any_present) {
-        for (int ch = 0; ch < O_AEFF; ++ch) o[ch * plane] = ch == O_TEX ? -1.f : 0.f;
-        continue;
-      }
-      float stk[L_CH];
-      layer_channels(a.rows, l, xs, ys[k], x0f, y0f, stk);
-      inv_iw[k] = 1.f / fmaxf(stk[L_IW], (float)1e-8);
-      u[k] = stk[L_UIW] * inv_iw[k];
-      v[k] = stk[L_VIW] * inv_iw[k];
-      su[py * TILE_W + px] = u[k];
-      sv[py * TILE_W + px] = v[k];
-    }
-    if (!any_present) continue;  // uniform over the block
-    if (sp.n_levels > 0) __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const int py = py0 + k * ROW_STEP;
-      float du_x = 0.f, du_y = 0.f, dv_x = 0.f, dv_y = 0.f;
-      if (sp.n_levels > 0) {
-        // in-tile differences, wrapping at the tile edges
-        const int right = py * TILE_W + ((px + 1) % TILE_W);
-        const int left = py * TILE_W + ((px + TILE_W - 1) % TILE_W);
-        const int down = ((py + 1) % TILE_H) * TILE_W + px;
-        const int up = ((py + TILE_H - 1) % TILE_H) * TILE_W + px;
-        du_x = tile_fd(u[k], su[right], su[left]);
-        du_y = tile_fd(u[k], su[down], su[up]);
-        dv_x = tile_fd(v[k], sv[right], sv[left]);
-        dv_y = tile_fd(v[k], sv[down], sv[up]);
-      }
-      float stk[L_CH];
-      layer_channels(a.rows, sm.stack[layer][tid + k * NTHREADS], xs, ys[k], x0f, y0f, stk);
-      const float xg = ((float)px + x0f) + 0.5f, yg = ((float)py + y0f) + 0.5f;
-      float res[O_AEFF];
-      shade_pixel(stk, u[k], v[k], inv_iw[k], du_x, du_y, dv_x, dv_y, xg, yg, layer, sp, res);
-      float* o = a.out + (size_t)layer * O_CH * plane
-                 + (size_t)(bi * TILE_H + py) * a.sp.wp + bj * TILE_W + px;
-      for (int ch = 0; ch < O_AEFF; ++ch) o[ch * plane] = res[ch];
-    }
-  }
+  shade_layers<FRAME_PLANES>(sm, a.rows, a.sp, sp, a.out, tid, bi, bj, px, py0, xs, ys, x0f,
+                            y0f);
 }
 
 template <int NS, bool ANALYTIC>
@@ -444,10 +232,10 @@ void launch(const FrameArgs& a, int n_tiles, cudaStream_t stream) {
   static bool configured = false;  // the attribute holds for the process
   if (!configured) {
     cudaFuncSetAttribute(frame_kernel<NS, ANALYTIC>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TileSmem));
     configured = true;
   }
-  frame_kernel<NS, ANALYTIC><<<n_tiles, NTHREADS, sizeof(Smem), stream>>>(a);
+  frame_kernel<NS, ANALYTIC><<<n_tiles, NTHREADS, sizeof(TileSmem), stream>>>(a);
 }
 
 }  // namespace

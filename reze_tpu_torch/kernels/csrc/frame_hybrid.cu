@@ -11,19 +11,27 @@
 // and sample-folded constants, the exact-z winner with the highest lane on
 // a tie, the winner re-evaluated at the pixel centre, stack push rules).
 //
-// What bounds it on this card: as frame.cu, the per-pixel float work of
-// the pair walk (per pixel and pair 4 planes of 2 products and a sum, then
-// per sample 4 sums and 6 tests, ~45 operations at 4 samples) and one
-// 1024-thread block per SM; device traffic is the pair rows once per tile,
-// the winners' rows once per pixel and pass from L2, and the 18-plane
-// output. The design: one thread per pixel; its depths, coverage, winner
-// and stencil in registers, the 24-channel stack in shared memory (96 KB);
-// each 128-pair chunk is staged once per tile into shared memory with the
-// normalised coefficients and the per-sample plane constants computed
-// there (so a plane at a sample is one shared product pair plus one sum),
-// and every thread then reads the same pair at the same time (broadcast).
-// The winner's row is kept as an index and read back at the end of the
-// pass, not carried through the walk.
+// What bounds it on this card: as frame.cu, with few pairs per tile the
+// fixed cost of a tile (the 18-plane store, 72 B per pixel), with many the
+// per-pixel float work of the walk (per pixel and pair 4 planes of 2
+// products and a sum, then per sample 4 sums and 6 tests).
+//
+// The design is frame.cu's (frame_common.cuh's tile design): 512 threads
+// per tile, two pixels each; depths, coverage bits and stencil (coverage
+// as one float in analytic mode), the chunk's minima and the pass winner
+// as (z, global row index) in registers; each stack layer as (row * 8 +
+// pass, z, a_eff) in shared memory, its attributes and material code
+// evaluated from the row at shade time in the twin's form; 85 KB of shared
+// memory, two tiles per SM; the 128-pair chunks of all passes bulk-copied
+// into a two-stage ring while the previous chunk is walked; a tile with no
+// pair writes its fixed output and stops. The threads of a chunk's pairs
+// form each pair's normalised coefficients and its tile- and sample-folded
+// constants once into a 128 B record, with each edge's largest sample
+// constant: a pixel whose edge value a*x + b*y plus that constant is < 0
+// fails the edge at every sample (rounding is monotonic) and skips its
+// sample tests. Only the walk differs from frame.cu: one depth test per
+// chunk, not per 32-pair group, the exact-z winner and the analytic mode's
+// centre-gated depth write.
 //
 // Compiled with -fmad=false: each product rounds on its own, as in the
 // twin, so coverage and z-ties decide the same way.
@@ -36,18 +44,6 @@
 namespace reze {
 namespace {
 
-constexpr float NO_HIT = 2.f;  // winner depth before any pair passed
-// staged per pair: a[4], b[4], c[4] of the normalised edges 0-2 and the
-// depth plane (c at the tile origin), then per sample c with its offset
-constexpr int Q_A = 0, Q_B = 4, Q_C = 8, Q_S = 12;
-__host__ __device__ constexpr int pair_floats(int ns) { return Q_S + 4 * ns; }
-
-__host__ __device__ constexpr int smem_floats(int ns) {
-  // the staging area doubles as the shade's 2 x NPIX scratch
-  return 2 * L_CH * NPIX + (CHUNK * pair_floats(ns) > 2 * NPIX ? CHUNK * pair_floats(ns)
-                                                                 : 2 * NPIX);
-}
-
 struct HybridArgs {
   const float* rows;
   const int* starts;  // (7, B)
@@ -56,43 +52,65 @@ struct HybridArgs {
   ShadeParams sp;
 };
 
+__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.f), 1.f); }
+
 template <int NS, bool ANALYTIC>
-__global__ void __launch_bounds__(NPIX, 1) hybrid_kernel(HybridArgs a) {
-  constexpr int PW = pair_floats(NS);
-  extern __shared__ float sm[];
-  float* stack = sm;                   // [2 * L_CH][NPIX]
-  float* q = stack + 2 * L_CH * NPIX;  // [CHUNK][PW] staged pairs
+__global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_bytes);
 
   const int tid = threadIdx.x;
-  const int py = tid / TILE_W, px = tid % TILE_W;
-  const int bx_n = a.sp.wp / TILE_W;
-  const int n_tiles = bx_n * (a.sp.hp / TILE_H);
-  const int b = blockIdx.x;
+  const int px = tid % TILE_W, py0 = tid / TILE_W;
+  const int bx_n = a.sp.wp / TILE_W, b = blockIdx.x;
   const int bi = b / bx_n, bj = b % bx_n;
   const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
-  const float xs = (float)px + 0.5f, ys = (float)py + 0.5f;  // tile-local
+  const float xs = (float)px + 0.5f;  // tile-local
+  float ys[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) ys[k] = (float)(py0 + k * ROW_STEP) + 0.5f;
 
-  float zbuf[NS];
-  for (int s = 0; s < NS; ++s) zbuf[s] = 1.f;
-  for (int ch = 0; ch < 2 * L_CH; ++ch) stack[ch * NPIX + tid] = 0.f;
-  float stencil = 0.f;
+  const int first = begin_tile(sm, a.rows, a.starts, a.counts, a.out, a.sp, tid);
+  if (first == N_PASSES) return;  // uniform over the block
+  const ShadeParams sp = stage_shade_params(a.sp, sm.shade, tid, NTHREADS);
 
-  for (int p = 0; p < N_PASSES; ++p) {
-    const int count = a.counts[p * n_tiles + b];
+  float zbuf[PPT][NS];
+  int bits[PPT];  // coverage of the pass per sample, the stencil
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    for (int s = 0; s < NS; ++s) zbuf[k][s] = 1.f;
+    sm.stack[0][tid + k * NTHREADS] = sm.stack[1][tid + k * NTHREADS] = Layer{-1, 0.f, 0.f};
+    bits[k] = 0;
+  }
+
+  int chunk = 0;  // position in the sequence of all passes' chunks
+  for (int p = first; p < N_PASSES; ++p) {
+    const int count = sm.count[p];
     if (count <= 0) continue;  // uniform over the block
-    const int start = a.starts[p * n_tiles + b];
+    const int start = sm.start[p];
     const bool depth_write = PASS_CFG[p][1];
-    float won[NS];
-    for (int s = 0; s < NS; ++s) won[s] = 0.f;
-    float best = NO_HIT;
-    int idx = -1;  // the winner's row
+    float best[PPT], won_a[PPT];  // pass winner depth; analytic coverage
+    int idx[PPT];                 // pass winner row
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      best[k] = NO_HIT;
+      idx[k] = -1;
+      won_a[k] = 0.f;
+      bits[k] &= STENCIL_BIT;
+    }
 
-    for (int c0 = 0; c0 < count; c0 += CHUNK) {
+    for (int c0 = 0; c0 < count; c0 += CHUNK, ++chunk) {
       const int n = min(count - c0, CHUNK);
-      __syncthreads();  // the previous chunk is consumed
+      const int stage = chunk & 1;
+      // the next chunk into the other stage (read before the last barrier)
+      if (tid == 0) stage_next(sm, a.rows, p, count, c0, stage ^ 1);
+      __syncthreads();  // the previous chunk's walk is done with prep
       if (tid < n) {
-        const float* r = a.rows + (size_t)(start + c0 + tid) * ROW_W;
-        float* d = q + tid * PW;
+        // per plane a, b, c (normalised edges, the constant at the tile
+        // origin) and an edge's largest sample constant; per sample the
+        // constants c + (a*dx + b*dy)
+        mbar_wait(&sm.bar[stage], (chunk >> 1) & 1);
+        const float* r = sm.ring[stage] + tid * ROW_W;
+        float* d = sm.prep + tid * PREP_W;
         for (int e = 0; e < 4; ++e) {
           float ae, be, ce;
           if (e < 3) {
@@ -106,100 +124,137 @@ __global__ void __launch_bounds__(NPIX, 1) hybrid_kernel(HybridArgs a) {
             ce = r[C_Z + 2];
           }
           ce = ce + (ae * x0f + be * y0f);
-          d[Q_A + e] = ae;
-          d[Q_B + e] = be;
-          d[Q_C + e] = ce;
+          d[4 * e] = ae;
+          d[4 * e + 1] = be;
+          d[4 * e + 2] = ce;
+          float cmax = 0.f;
           if (!ANALYTIC)
-            for (int s = 0; s < NS; ++s)
-              d[Q_S + 4 * s + e] = ce + (ae * SAMPLE_DX[s] + be * SAMPLE_DY[s]);
+            for (int s = 0; s < NS; ++s) {
+              const float cs = ce + (ae * SAMPLE_DX[s] + be * SAMPLE_DY[s]);
+              d[PREP_OFF + s * 4 + e] = cs;
+              cmax = s ? fmaxf(cmax, cs) : cs;
+            }
+          d[4 * e + 3] = cmax;
         }
       }
       __syncthreads();
 
-      float zmin[NS];
-      bool hit_s[NS];
-      for (int s = 0; s < NS; ++s) {
-        zmin[s] = NO_HIT;
-        hit_s[s] = false;
+      float zmin[PPT][NS], covmax[PPT], bz[PPT];
+      int hit[PPT], bl[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        for (int s = 0; s < NS; ++s) zmin[k][s] = NO_HIT;
+        hit[k] = 0;
+        covmax[k] = 0.f;
+        bz[k] = NO_HIT;
+        bl[k] = -1;
       }
-      float covmax = 0.f, bz = NO_HIT;
-      int bl = -1;
       for (int j = 0; j < n; ++j) {
-        const float* d = q + j * PW;
-        const float ab0 = d[Q_A] * xs + d[Q_B] * ys;
-        const float ab1 = d[Q_A + 1] * xs + d[Q_B + 1] * ys;
-        const float ab2 = d[Q_A + 2] * xs + d[Q_B + 2] * ys;
-        const float ab3 = d[Q_A + 3] * xs + d[Q_B + 3] * ys;
-        const float zc = ab3 + d[Q_C + 3];
-        bool any_pass = false;
-        if (ANALYTIC) {
-          const float se0 = ab0 + d[Q_C], se1 = ab1 + d[Q_C + 1], se2 = ab2 + d[Q_C + 2];
-          const float cov = (fminf(fmaxf(se0 + 0.5f, 0.f), 1.f)
-                             * fminf(fmaxf(se1 + 0.5f, 0.f), 1.f))
-                            * fminf(fmaxf(se2 + 0.5f, 0.f), 1.f);
-          const bool zok = zc <= zbuf[0] && zc >= 0.f && zc <= 1.f;
-          any_pass = cov > 0.f && zok;
-          if (se0 >= 0.f && se1 >= 0.f && se2 >= 0.f && zok) zmin[0] = fminf(zmin[0], zc);
-          if (any_pass) covmax = fmaxf(covmax, cov);
-        } else {
+        const float4* q = reinterpret_cast<const float4*>(sm.prep + j * PREP_W);
+        float ab0[PPT], ab1[PPT], ab2[PPT], ab3[PPT], zc[PPT];
+        bool any_pass[PPT], live[PPT], any_live = false;
+        {
+          const float4 P0 = q[0], P1 = q[1], P2 = q[2], P3 = q[3];
+          const float ax0 = P0.x * xs, ax1 = P1.x * xs, ax2 = P2.x * xs, axz = P3.x * xs;
+#pragma unroll
+          for (int k = 0; k < PPT; ++k) {
+            ab0[k] = ax0 + P0.y * ys[k];
+            ab1[k] = ax1 + P1.y * ys[k];
+            ab2[k] = ax2 + P2.y * ys[k];
+            ab3[k] = axz + P3.y * ys[k];
+            zc[k] = ab3[k] + P3.z;
+            any_pass[k] = false;
+            if (ANALYTIC) {
+              const float se0 = ab0[k] + P0.z, se1 = ab1[k] + P1.z, se2 = ab2[k] + P2.z;
+              const float cov = (clip01(se0 + 0.5f) * clip01(se1 + 0.5f)) * clip01(se2 + 0.5f);
+              const bool zok = zc[k] <= zbuf[k][0] && zc[k] >= 0.f && zc[k] <= 1.f;
+              any_pass[k] = cov > 0.f && zok;
+              if (se0 >= 0.f && se1 >= 0.f && se2 >= 0.f && zok)
+                zmin[k][0] = fminf(zmin[k][0], zc[k]);
+              if (any_pass[k]) covmax[k] = fmaxf(covmax[k], cov);
+            } else {
+              // outside an edge at every sample: a*x + b*y + c_s <= a*x +
+              // b*y + max_s c_s < 0 for each sample, as rounding is
+              // monotonic
+              live[k] = !(ab0[k] + P0.w < 0.f || ab1[k] + P1.w < 0.f || ab2[k] + P2.w < 0.f);
+              any_live = any_live || live[k];
+            }
+          }
+        }
+        if (!ANALYTIC && any_live) {
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
-            const float* cs = d + Q_S + 4 * s;
-            const float e0 = ab0 + cs[0], e1 = ab1 + cs[1], e2 = ab2 + cs[2];
-            const float zs = ab3 + cs[3];
-            if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && zs <= zbuf[s] && zs >= 0.f
-                && zs <= 1.f) {
-              zmin[s] = fminf(zmin[s], zs);
-              hit_s[s] = true;
-              any_pass = true;
+            const float4 cs = q[PREP_OFF / 4 + s];
+#pragma unroll
+            for (int k = 0; k < PPT; ++k) {
+              const float zs = ab3[k] + cs.w;
+              if (live[k] && ab0[k] + cs.x >= 0.f && ab1[k] + cs.y >= 0.f
+                  && ab2[k] + cs.z >= 0.f && zs <= zbuf[k][s] && zs >= 0.f && zs <= 1.f) {
+                zmin[k][s] = fminf(zmin[k][s], zs);
+                hit[k] |= 1 << s;
+                any_pass[k] = true;
+              }
             }
           }
         }
         // winner: minimum centre z, the highest lane on a tie
-        if (any_pass && zc <= bz) {
-          bz = zc;
-          bl = j;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          if (any_pass[k] && zc[k] <= bz[k]) {
+            bz[k] = zc[k];
+            bl[k] = j;
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        if (depth_write)
+          for (int s = 0; s < NS; ++s) zbuf[k][s] = fminf(zbuf[k][s], zmin[k][s]);
+        if (ANALYTIC) won_a[k] = fmaxf(won_a[k], covmax[k]);
+        else bits[k] |= hit[k];
+        if (bz[k] < NO_HIT && bz[k] <= best[k]) {  // a later chunk takes a tie
+          best[k] = bz[k];
+          idx[k] = start + c0 + bl[k];
         }
       }
-      for (int s = 0; s < NS; ++s) {
-        if (depth_write) zbuf[s] = fminf(zbuf[s], zmin[s]);
-        won[s] = ANALYTIC ? fmaxf(won[s], covmax) : (hit_s[s] ? 1.f : won[s]);
-      }
-      if (bz < NO_HIT && bz <= best) {  // a later chunk takes a tie
-        best = bz;
-        idx = start + c0 + bl;
-      }
     }
 
-    // the winner's depth and attributes at the pixel centre, then the push
-    float cover = won[0];
-    for (int s = 1; s < NS; ++s) cover = cover + won[s];
-    if (!ANALYTIC) cover = cover * (float)(1.0 / NS);
-    const bool hit = best < NO_HIT;
-    float attrs[6], z = 0.f, code = 0.f;
-    for (int ch = 0; ch < 6; ++ch) attrs[ch] = 0.f;
-    if (hit) {
-      const float* r = a.rows + (size_t)idx * ROW_W;
-      z = (r[C_Z] * xs + r[C_Z + 1] * ys) + ((r[C_Z + 2] + r[C_Z] * x0f) + r[C_Z + 1] * y0f);
-      code = r[C_ALPHA];
-      for (int ch = 0; ch < 6; ++ch) {
-        const float ca = r[C_ATTR + ch], cb = r[C_ATTR + 6 + ch], cc = r[C_ATTR + 12 + ch];
-        attrs[ch] = (ca * xs + cb * ys) + ((cc + ca * x0f) + cb * y0f);
+    // the winner's depth at the pixel centre, then the push
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      float cover;
+      if (ANALYTIC) {
+        cover = won_a[k];
+      } else {
+        cover = (float)(bits[k] & 1);
+        for (int s = 1; s < NS; ++s) cover = cover + (float)((bits[k] >> s) & 1);
+        cover = cover * (float)(1.0 / NS);
       }
+      const bool hit = best[k] < NO_HIT;
+      float z = 0.f, code = 0.f;
+      if (hit) {
+        const float* r = a.rows + (size_t)idx[k] * ROW_W;
+        const float za = __ldg(r + C_Z), zb = __ldg(r + C_Z + 1);
+        z = (za * xs + zb * ys[k]) + ((__ldg(r + C_Z + 2) + za * x0f) + zb * y0f);
+        code = __ldg(r + C_ALPHA);
+      }
+      push_ref(sm.stack[0][tid + k * NTHREADS], sm.stack[1][tid + k * NTHREADS], bits[k], hit,
+               cover, code, idx[k] * 8 + p, z, p);
     }
-    push_winner(stack, tid, stencil, hit, cover, code, attrs, z, p);
   }
 
-  __syncthreads();  // every thread is done with the staged pairs
-  shade_tile(stack, q, q + NPIX, tid, bi, bj, a.sp, a.out);
+  shade_layers<HYBRID_PLANES>(sm, a.rows, a.sp, sp, a.out, tid, bi, bj, px, py0, xs, ys, x0f,
+                             y0f);
 }
 
 template <int NS, bool ANALYTIC>
 void launch_hybrid(const HybridArgs& a, int n_tiles, cudaStream_t stream) {
-  const int smem = smem_floats(NS) * (int)sizeof(float);
-  cudaFuncSetAttribute(hybrid_kernel<NS, ANALYTIC>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  hybrid_kernel<NS, ANALYTIC><<<n_tiles, NPIX, smem, stream>>>(a);
+  static bool configured = false;  // the attribute holds for the process
+  if (!configured) {
+    cudaFuncSetAttribute(hybrid_kernel<NS, ANALYTIC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TileSmem));
+    configured = true;
+  }
+  hybrid_kernel<NS, ANALYTIC><<<n_tiles, NTHREADS, sizeof(TileSmem), stream>>>(a);
 }
 
 }  // namespace
@@ -217,7 +272,9 @@ extern "C" int reze_frame_hybrid(const float* rows, const int* starts, const int
                            n_levels, hp, wp}};
   const int n_tiles = (hp / TILE_H) * (wp / TILE_W);
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (n_tiles <= 0 || kr > MAX_GROUPS || kt > MAX_GROUPS || ke > MAX_GROUPS
+      || tex_cols > MAX_TEX_COLS || ((uintptr_t)rows & 15) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
   if (analytic) {
     launch_hybrid<1, true>(a, n_tiles, st);
   } else {

@@ -62,6 +62,8 @@ def render_megakernel_hybrid(tables: FG.FrameTables, shade_tables: SG.ShadeTable
     if analytic:
         n_samples = 1
     FG.check_frame_tables(tables, hp, wp, n_samples)
+    if tables.rows.data_ptr() % 16:
+        raise ValueError("rows: the kernel copies them in 16-byte units; need an aligned tensor")
     dev = tables.rows.device
     lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
     SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)

@@ -73,8 +73,9 @@ class PassTables(NamedTuple):
 
 
 def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: Tensor,
-                by: int, bx: int) -> PassTables:
-    """Plane equations + the exact (tile, triangle) pair list of one pass."""
+                by: int, bx: int, cap: int | None = None) -> PassTables:
+    """Plane equations + the exact (tile, triangle) pair list of one pass,
+    with ``cap`` pair slots (default :func:`pair_capacity`)."""
     t = tri.valid.shape[0]
     if t > _KEY_SHIFT:
         raise ValueError(f"pass has {t} triangles; the pair sort key holds at most "
@@ -117,7 +118,8 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     ends_tri = torch.cumsum(n_bins_tri, 0)
     starts_tri = ends_tri - n_bins_tri
     total = ends_tri[-1]
-    cap = pair_capacity(t)
+    if cap is None:
+        cap = pair_capacity(t)
     k = torch.arange(cap, device=dev)
     tri_of_k = torch.clamp(torch.searchsorted(ends_tri, k, right=True), max=t - 1)
     slot = k - starts_tri[tri_of_k]
@@ -168,6 +170,9 @@ def _check(tables: PassTables, zbuf: Tensor, bx: int) -> None:
                 or v.dim() != 1 or (n is not None and v.shape[0] != n)):
             raise ValueError(f"{name}: need a contiguous 1-D int32 tensor "
                              f"({n or 'cap'},) on {dev}")
+    if zbuf.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("zbuf, tab: the kernel reads them in 16-byte units; need aligned "
+                         "tensors")
 
 
 def raster_pass(tables: PassTables, zbuf: Tensor, *, bx: int, depth_write: bool,

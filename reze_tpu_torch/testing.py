@@ -298,11 +298,13 @@ def random_stream_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
 
 
 def random_raster_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
-                         device="cuda"):
+                         device="cuda", cap: int | None = None):
     """Raster-pass tables (``raster_gpu.PassTables``), one per entry of
     ``n_tris``, from :func:`random_pass_inputs` with no culling. Each
     triangle's material id is its own index, so a G-buffer names the
-    triangle that won each pixel."""
+    triangle that won each pixel. ``cap``: pair slots of each pass (default
+    ``raster_gpu.pair_capacity``; the triangles span a fixed share of the
+    frame, so a large frame needs more to hold every pair)."""
     import torch
 
     from .kernels import raster_gpu as RG
@@ -314,8 +316,29 @@ def random_raster_tables(seed: int, n_tris: tuple[int, ...], hp: int, wp: int,
         tri = raster.setup_triangles(t["corners_clip"], t["valid"], wp, hp, raster.CULL_NONE)
         out.append(RG.pack_tables(tri, t["corner_uv"], t["corner_nrm"],
                                   torch.arange(len(d["valid"]), device=device),
-                                  hp // RG.TILE_H, wp // RG.TILE_W))
+                                  hp // RG.TILE_H, wp // RG.TILE_W, cap))
     return out
+
+
+def touched_bands(tables, wp: int):
+    """The 8-row bands of a raster pass's 32x128 tiles that some pair's y
+    range touches -> ((B, BANDS) bool, the number of (pair, band) pairs
+    that touch)."""
+    import torch
+
+    from .kernels import raster_gpu as RG
+
+    dev = tables.counts.device
+    b_total, bx = tables.counts.shape[0], wp // RG.TILE_W
+    n = int(tables.counts.sum())
+    tile = torch.repeat_interleave(torch.arange(b_total, device=dev), tables.counts.long())
+    ids = tables.ids[:n].long()
+    y0 = (tile // bx * RG.TILE_H).float()
+    b0, b1 = RG._band_range(tables.tab[ids, RG.C_YMIN], tables.tab[ids, RG.C_YMAX], y0)
+    band = torch.arange(RG.BANDS, device=dev)
+    hit = ((band >= b0[:, None]) & (band <= b1[:, None])).int()
+    per_band = torch.zeros((b_total, RG.BANDS), dtype=torch.int32, device=dev)
+    return per_band.index_add_(0, tile, hit) > 0, int(hit.sum())
 
 
 def random_stack(seed: int, hp: int, wp: int, n_groups: int = 3,

@@ -103,23 +103,85 @@ def test_wrappers_refuse_bad_inputs(dev):
         CG.composite(o, atlas, half0=True, half1=True, with_bloom=True)
 
 
-@pytest.mark.parametrize("s,chain", [(4, ((True, True), (False, False))),
-                                     (1, ((True, False), (False, True)))])
-def test_raster_kernel_matches_twin(dev, s, chain):
-    tabs = ptesting.random_raster_tables(11, (300, 300), 64, 256, device=dev)
-    zk = torch.ones((s, 64, 256), device=dev)
-    zt = torch.ones((s, 64, 256), device=dev)
+# (depth_write, with_attrs) of each chained pass
+ALL_MODES = ((True, True), (True, False), (False, True), (False, False))
+
+
+def _raster_chain(tabs, chain, zk, zt, bx):
+    """Chain the passes through kernel and twin (each from its own depth
+    buffer) and hold every pass's outputs to the twin's: within the CPU
+    tests' bounds and, since kernel and twin do the same float operations,
+    bit for bit in all nine channels and every depth."""
     for tb, (dw, attrs) in zip(tabs, chain):
         before = RG.raster_pass.launches
-        zk, gk = RG.raster_pass(tb, zk, bx=2, depth_write=dw, with_attrs=attrs)
-        zt, gt = RG.raster_pass_twin(tb, zt, bx=2, depth_write=dw, with_attrs=attrs)
+        zk, gk = RG.raster_pass(tb, zk, bx=bx, depth_write=dw, with_attrs=attrs)
+        zt, gt = RG.raster_pass_twin(tb, zt, bx=bx, depth_write=dw, with_attrs=attrs)
         torch.cuda.synchronize()
         assert RG.raster_pass.launches == before + 1
         res = ptesting.compare_raster(zk, gk, zt, gt)
         assert res["ok"], res
-        # kernel and twin do the same float operations: every channel and
-        # depth equal bit for bit
         assert res["max_abs_err"] == 0.0, res
+    return zk
+
+
+@pytest.mark.parametrize("s,chain", [(4, ((True, True), (False, False))),
+                                     (1, ((True, False), (False, True))),
+                                     (2, ALL_MODES), (3, ALL_MODES)])
+def test_raster_kernel_matches_twin(dev, s, chain):
+    tabs = ptesting.random_raster_tables(11, (300,) * len(chain), 64, 256, device=dev)
+    _raster_chain(tabs, chain, torch.ones((s, 64, 256), device=dev),
+                  torch.ones((s, 64, 256), device=dev), 2)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_raster_kernel_dense_matches_twin(dev, s):
+    """Hundreds of pairs per tile: several 128-pair chunks, every band
+    touched, most pixels won many times."""
+    tabs = ptesting.random_raster_tables(3, (1500, 1200), 64, 512, device=dev, cap=80000)
+    for tb in tabs:
+        assert int(tb.overflow) == 0
+        assert tb.counts.min() > 0 and tb.counts.max() > 2 * 128
+        assert (tb.counts % 128 != 0).all()
+    _raster_chain(tabs, ((True, True), (False, True)), torch.ones((s, 64, 512), device=dev),
+                  torch.ones((s, 64, 512), device=dev), 4)
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_raster_kernel_keeps_untouched_depths(dev, s):
+    """A few triangles over a seeded non-uniform depth buffer: tiles with
+    no pair and 8-row bands that no pair of their tile touches keep their
+    depths as they were, bit for bit, and write the fixed G-buffer."""
+    hp, wp = 128, 512
+    tabs = ptesting.random_raster_tables(4, (8, 8), hp, wp, device=dev)
+    z0 = torch.as_tensor(np.random.default_rng(5).uniform(0.2, 1.0, (s, hp, wp)),
+                         dtype=torch.float32, device=dev)
+    by, bx = hp // RG.TILE_H, wp // RG.TILE_W
+    touched = torch.zeros((by * bx, RG.BANDS), dtype=torch.bool, device=dev)
+    for tb in tabs:
+        touched |= ptesting.touched_bands(tb, wp)[0]
+    counts = sum(tb.counts for tb in tabs)
+    assert (counts == 0).any()  # empty tiles
+    assert (~touched[counts > 0]).any() and touched.any()  # untouched bands of busy tiles
+    zk = _raster_chain(tabs, ((True, True), (True, False)), z0.clone(), z0.clone(), bx)
+    # (S, by, BANDS, 8, bx, 128) -> per (tile, band)
+    keep = (~touched).reshape(by, bx, RG.BANDS).permute(0, 2, 1)[None, :, :, None, :, None]
+    shape = (s, by, RG.BANDS, RG.BAND_H, bx, RG.TILE_W)
+    kept = (zk.reshape(shape) == z0.reshape(shape)) | ~keep
+    assert kept.all()
+
+
+@pytest.mark.parametrize("bad", ["zbuf", "tab"])
+def test_raster_wrapper_refuses_unaligned(dev, bad):
+    tb = ptesting.random_raster_tables(11, (30,), 32, 128, device=dev)[0]
+    z = torch.ones((4, 32, 128), device=dev)
+    if bad == "zbuf":  # the kernel reads and writes depths as float4s
+        z = torch.ones(z.numel() + 1, device=dev)[1:].view(4, 32, 128)
+    else:  # the kernel copies rows in 16-byte units
+        t = torch.zeros(tb.tab.numel() + 1, device=dev)[1:].view(tb.tab.shape)
+        t.copy_(tb.tab)
+        tb = tb._replace(tab=t)
+    with pytest.raises(ValueError):
+        RG.raster_pass(tb, z, bx=1, depth_write=True)
 
 
 @pytest.mark.parametrize("empty_tiles", [((0, 0), (1, 1)), ()], ids=["some_empty", "all_present"])
@@ -152,12 +214,23 @@ def test_new_wrappers_refuse_bad_inputs(dev):
                        lights, 0.45, eye, inv_vp)
 
 
-@pytest.mark.parametrize("analytic,use_mips,n", [(False, True, 4), (True, False, 1),
-                                                 (False, False, 2)])
-def test_hybrid_kernel_matches_twin(dev, analytic, use_mips, n):
-    ft = ptesting.random_frame_tables(11, N_TRIS, HP, WP, device=dev)
+@pytest.mark.parametrize("tabs,analytic,use_mips,n", [
+    ("seeded", False, True, 4), ("seeded", True, False, 1), ("seeded", False, False, 2),
+    ("seeded", False, True, 3), ("dense", False, True, 4), ("dense", True, False, 1),
+    ("dense", False, False, 3), ("empty", False, True, 4), ("empty", True, True, 1)])
+def test_hybrid_kernel_matches_twin(dev, tabs, analytic, use_mips, n):
+    if tabs == "dense":
+        hp, wp = DENSE["hp"], DENSE["wp"]
+        ft = ptesting.random_frame_tables(3, DENSE["n_tris"], hp, wp, device=dev,
+                                          pairs_per_tri=DENSE["pairs_per_tri"])
+        assert int(ft.overflow) == 0 and ft.counts.max() > 2 * FH.CHUNK
+    else:
+        hp, wp = HP, WP
+        ft = ptesting.random_frame_tables(11, N_TRIS, hp, wp, device=dev)
+        if tabs == "empty":
+            ft = ft._replace(counts=torch.zeros_like(ft.counts))
     tables, lights, eye, inv_vp = _shade_args(dev)
-    kw = dict(hp=HP, wp=WP, n_samples=n, use_mips=use_mips, lod_bias=(1.0, 0.0),
+    kw = dict(hp=hp, wp=wp, n_samples=n, use_mips=use_mips, lod_bias=(1.0, 0.0),
               analytic=analytic)
     before = FH.render_megakernel_hybrid.launches
     got = FH.render_megakernel_hybrid(ft, tables, lights, 0.45, eye, inv_vp, **kw)
@@ -201,11 +274,12 @@ def test_megakernel_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):  # float64 rows
         FH.render_megakernel_hybrid(ft._replace(rows=ft.rows.double()), tables, lights, 0.45,
                                     eye, inv_vp, hp=16, wp=128, n_samples=4)
-    with pytest.raises(ValueError):  # rows not 16-byte aligned: the kernel bulk-copies them
-        n = ft.rows.numel()
-        rows = torch.zeros(n + 1, device=dev)[1:].view(ft.rows.shape)
-        FG.render_megakernel(ft._replace(rows=rows), tables, lights, 0.45, eye, inv_vp, hp=16,
-                             wp=128, n_samples=4)
+    n = ft.rows.numel()
+    rows = torch.zeros(n + 1, device=dev)[1:].view(ft.rows.shape)
+    for fn in (FG.render_megakernel, FH.render_megakernel_hybrid):
+        with pytest.raises(ValueError):  # rows not 16-byte aligned: the kernels bulk-copy them
+            fn(ft._replace(rows=rows), tables, lights, 0.45, eye, inv_vp, hp=16, wp=128,
+               n_samples=4)
     st = ptesting.random_stream_tables(11, (30,) * 7, 16, 128, device=dev)
     with pytest.raises(ValueError):  # bounds of another frame
         FS.render_megakernel_stream(st, hp=32, wp=128, n_samples=4)

@@ -95,6 +95,43 @@ def test_pack_tables_overflow_matches():
     np.testing.assert_array_equal(p.counts.numpy(), np.asarray(j.counts))
 
 
+def test_pack_tables_takes_a_capacity():
+    """The 38400 pairs of the overflow case fit a list of 38400 slots: every
+    tile lists all 300 triangles in draw order; a smaller list drops the
+    rest."""
+    d = _frame_covering_triangles(300, 3)
+    tri = praster.setup_triangles(torch.as_tensor(d["corners_clip"]),
+                                  torch.as_tensor(d["valid"]), 1024, 512, praster.CULL_NONE)
+    args = (tri, torch.as_tensor(d["corner_uv"]), torch.as_tensor(d["corner_nrm"]),
+            torch.arange(300), 512 // RG.TILE_H, 1024 // RG.TILE_W)
+    p = RG.pack_tables(*args, cap=300 * 128)
+    assert p.ids.shape == (300 * 128,) and int(p.overflow) == 0
+    assert (p.counts == 300).all()
+    np.testing.assert_array_equal(p.ids.numpy().reshape(128, 300),
+                                  np.tile(np.arange(300), (128, 1)))
+    assert int(RG.pack_tables(*args, cap=1000).overflow) == 300 * 128 - 1000
+
+
+def test_untouched_bands_keep_their_depths():
+    """The twin, as the kernel, tests depth only in the 8-row bands that a
+    pair's y range touches (``testing.touched_bands``): from a seeded
+    non-uniform depth buffer, the other bands keep their depths and draw
+    nothing."""
+    hp, wp = 128, 512
+    tb = ptesting.random_raster_tables(4, (8,), hp, wp, device="cpu")[0]
+    touched, pair_bands = ptesting.touched_bands(tb, wp)
+    assert 0 < int(touched.sum()) < touched.numel() and pair_bands >= int(touched.sum())
+    z0 = torch.as_tensor(np.random.default_rng(5).uniform(0.2, 1.0, (4, hp, wp)),
+                         dtype=torch.float32)
+    z, g = RG.raster_pass_twin(tb, z0.clone(), bx=wp // RG.TILE_W, depth_write=True)
+    by, bx = hp // RG.TILE_H, wp // RG.TILE_W
+    band_px = touched.reshape(by, bx, RG.BANDS).permute(0, 2, 1)[:, :, None, :, None].expand(
+        by, RG.BANDS, RG.BAND_H, bx, RG.TILE_W).reshape(hp, wp)
+    assert (z[:, ~band_px] == z0[:, ~band_px]).all()
+    assert (g[RG.CH_MAT][~band_px] == -1).all()
+    assert (z[:, band_px] != z0[:, band_px]).any()
+
+
 def test_pair_capacity_grows_with_the_pass():
     assert RG.pair_capacity(1) == RG.pair_capacity(8192) == 16384
     assert RG.pair_capacity(8193) == 32768
