@@ -23,17 +23,23 @@ Phases, each printed on its own line:
    pass on a 256x1024 crop of a dense raster table set (its seven passes
    chained) and the stack shade on a whole stack with both layers present
    in every tile;
-4. the six render paths of ``make_step`` at 1920x1080, physics off, on
-   the synthetic model with the camera close enough that its quads span
-   the frame height, 5 frames each: the main path (default
-   ``EngineConfig``), the other three megakernels (``rasterizer`` "stream",
-   "mxu", "hybrid"), the layered per-pass path (``use_megakernel=False``)
-   and the non-layered per-pass path (``layered_shading=False``). Each
-   checks finite frames, the covered fraction, no pair overflow and its
-   kernels' launches per frame (counts set to 0 just before the path and
-   read just after);
+4. the seven paths of ``make_step`` at 1920x1080 on the synthetic model
+   with the camera close enough that its quads span the frame height, 5
+   frames each: six with physics off, the main path (the default
+   ``EngineConfig`` but for physics), the other three megakernels
+   (``rasterizer`` "stream", "mxu", "hybrid"), the layered per-pass path
+   (``use_megakernel=False``) and the non-layered per-pass path
+   (``layered_shading=False``), and ``default``, the default
+   ``EngineConfig`` with its rigid-body physics. Each checks finite
+   frames, the covered fraction, no pair overflow and its kernels'
+   launches per frame (counts set to 0 just before the path and read just
+   after);
+   (4b) physics: ``physics.solver.step`` on the 257-body, 406-joint rig
+   (``testing.make_physics_rig``) at dt = 1/60 s for 120 frames on the
+   card and on the CPU, and on the CPU again from a start 1 ulp away, the
+   trajectories held together (bounds at ``RIG_*``);
 5. timing: milliseconds per frame of each path (host clock over
-   state-carrying steps, the six paths twice in turns in one call), and
+   state-carrying steps, the seven paths twice in turns in one call), and
    each kernel's device time (torch.profiler's records of its launches)
    next to its twin's (CUDA events) at the 1080p shapes, with its bound;
    (5b) the frame, hybrid and raster-pass kernels and the stack shade on
@@ -45,7 +51,11 @@ Phases, each printed on its own line:
    (where the kernels' twins run);
 7. only with ``--profile``: each path's 1080p step under ``torch.profiler``
    for 3 frames: device busy time, kernel launches and the largest host
-   and device items per frame.
+   and device items per frame;
+8. the rig's cost: ms per frame by the host clock, and under
+   torch.profiler device ms and kernel launches per frame and per
+   substep. Last, because its profiles hold tens of thousands of launches
+   a frame.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -57,12 +67,30 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 N_FRAMES = 5
 N_TIMED = 20
+# the physics phase (4b): the rig's seed and frames. The card's trajectory
+# is held to the CPU's within RIG_EARLY_TOL (positions and quaternions)
+# over the first RIG_EARLY frames, with the same contact overflow there.
+# The card and the CPU round differently (reduction order, library
+# functions; the card's index_add_ adds in no fixed order) and the
+# swinging chains amplify last-bit differences: a witness, the CPU run
+# again from a start 1 ulp away, parts from the CPU run as fast. So over
+# all RIG_FRAMES the card is held to the rig's physics instead: its
+# largest joint violation and body speed after the early frames within a
+# factor RIG_SPREAD of the CPU run's either way
+RIG_SEED = 0
+RIG_FRAMES = 120
+RIG_EARLY = 20
+RIG_EARLY_TOL = 1e-3
+RIG_SPREAD = 2.0
+# frames timed per turn and profiled (phase 8)
+RIG_TIMED = 8
 W, H = 1920, 1080
 # the dense table set (phases 3e, 5b): seeded random triangles per pass,
 # each spanning a fixed share of the frame, so at 1088x1920 the pairs of a
@@ -75,7 +103,10 @@ DENSE_PAIRS_PER_TRI = 160
 # pairs per triangle at 1088x1920)
 DENSE_RASTER_PAIRS_PER_TRI = 40
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
+# operations/s, a fused multiply-add counted as two. The bound is the
+# card's, not the build's: the kernels build with -fmad=false, which
+# halves their own peak, and a bound at that rate would flatter them
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 # float operations per (pixel, pair) of a raster walk: three edge planes
@@ -99,8 +130,13 @@ def require(cond: bool, what) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(tag: str, **fields) -> None:
-    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+    """One result line, with the seconds since the script started."""
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" at={time.perf_counter() - T_START:.0f}s", flush=True)
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -119,10 +155,12 @@ def cuda_ms(fn, n: int) -> float:
 
 
 def kernel_ms(fn, n: int, kernel: str) -> float:
-    """Mean device time of one launch of the CUDA kernel named ``kernel``
-    over the launches of ``n`` calls of ``fn`` (after one warm-up call)
-    that torch.profiler recorded. Unlike :func:`cuda_ms` it leaves out
-    the host time of the calls, which a fast kernel waits on."""
+    """Median device time of one launch of the CUDA kernel named
+    ``kernel`` over the launches of ``n`` calls of ``fn`` (after one
+    warm-up call) that torch.profiler recorded; the median, since the
+    profiler now and then records a launch far from the others. Unlike
+    :func:`cuda_ms` it leaves out the host time of the calls, which a
+    fast kernel waits on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,12 +170,11 @@ def kernel_ms(fn, n: int, kernel: str) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and (f"{kernel}<" in e.key or f"{kernel}(" in e.key)]
-    count = sum(e.count for e in evs)  # the profiler may drop a few records
-    require(count > 0, (kernel, "no launch under the profiler"))
-    return sum(device_us(e) for e in evs) / count / 1e3
+    times = [device_us(e) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (f"{kernel}<" in e.key or f"{kernel}(" in e.key)]
+    require(len(times) > 0, (kernel, "no launch under the profiler"))
+    return statistics.median(times) / 1e3
 
 
 def device_us(e) -> float:
@@ -167,9 +204,20 @@ def main() -> int:
 
 
 def profile_step(step, state, args, n: int = 3) -> dict:
-    """Per-frame figures of ``n`` state-carrying steps under torch.profiler:
-    wall and device-busy ms, device kernels and cudaLaunchKernel calls, and
-    the largest host and device items."""
+    """Per-frame figures of ``n`` state-carrying steps under torch.profiler
+    (:func:`profile_calls`)."""
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], *args)
+
+    return profile_calls(one, n)
+
+
+def profile_calls(fn, n: int = 3) -> dict:
+    """Per-call figures of ``n`` calls of ``fn`` under torch.profiler: wall
+    and device-busy ms, device operations (kernels and copies) and
+    cudaLaunchKernel calls, and the largest host and device items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -177,7 +225,7 @@ def profile_step(step, state, args, n: int = 3) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            state, _ = step(state, *args)
+            fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
     events = prof.key_averages()
@@ -203,7 +251,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     from reze_tpu_torch.anim import sampler, tween
     from reze_tpu_torch.camera import Camera
     from reze_tpu_torch.core import math3d as m3
-    from reze_tpu_torch.core.types import EngineConfig, init_scene_state
+    from reze_tpu_torch.core.types import EngineConfig, init_physics_state, init_scene_state
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import cuda_lib
     from reze_tpu_torch.kernels import frame_gpu as FG
@@ -212,6 +260,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     from reze_tpu_torch.kernels import frame_stream as FS
     from reze_tpu_torch.kernels import raster_gpu as RG
     from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.physics import solver
     from reze_tpu_torch.render import pipeline, pipeline_gpu
     from reze_tpu_torch.step import make_step
 
@@ -337,7 +386,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     paths = {"main": cfg, **{r: dataclasses.replace(cfg, rasterizer=r)
                              for r in ("stream", "mxu", "hybrid")},
              "layered": dataclasses.replace(cfg, use_megakernel=False),
-             "per_pass": dataclasses.replace(cfg, layered_shading=False)}
+             "per_pass": dataclasses.replace(cfg, layered_shading=False),
+             "default": dataclasses.replace(cfg, enable_physics=True)}
     steps = {name: make_step(model, c) for name, c in paths.items()}
     step = steps["main"]
 
@@ -345,7 +395,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     dims = pipeline_gpu.make_dims_fast(cfg)
     state0 = init_scene_state(model)
     sim = step.simulate(state0, dt, track, breath)
-    pos, nrm = sim[5], sim[6]
+    pos, nrm = sim[7], sim[8]
     tables = SG.pack_shade_tables(model.materials, model.atlas)
     ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, pos, nrm, vp, None)
     inv_vp = m3.mat4_inverse(vp).contiguous()
@@ -360,12 +410,14 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     def frame_bound(tabs, shade_tables, out):
         """The frame kernel's: every pair's row, the per-tile starts and
         counts and the shade tables in, the 18 planes out; per pair the
-        walk of its tile's pixels, per pixel the shade of both layers."""
+        walk of its tile's pixels, the shade of each layer's pixels that
+        hold a fragment (an empty layer's output is fixed)."""
         pairs = int(tabs.counts.sum())  # one row per pair
         walk = PLANE_OPS + SAMPLE_OPS * cfg.msaa_samples
+        shaded = int((out[SG.O_AEFF] > 0).sum()) + int((out[SG.O_CH + SG.O_AEFF] > 0).sum())
         return bound(pairs * FG.ROW_W * 4
                      + nbytes(tabs.starts, tabs.counts, *shade_tables[1:4], out),
-                     pairs * FG.TILE_H * FG.TILE_W * walk + 2 * out[0].numel() * SHADE_OPS)
+                     pairs * FG.TILE_H * FG.TILE_W * walk + shaded * SHADE_OPS)
 
     s = cfg.msaa_samples
     walk_ops = PLANE_OPS + SAMPLE_OPS * s
@@ -514,7 +566,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         check_exact("shade_stack", f"all_present_{dims.hp}x{dims.wp}_mips{int(mips)}",
                     SG.shade_stack(*dsa, **dskw), SG.shade_stack_twin(*dsa, **dskw))
 
-    # 4. the six paths, 5 frames each, counts set to 0 just before each
+    # 4. the seven paths, 5 frames each, counts set to 0 just before each
     counters = {"frame": FG.render_megakernel, "stream": FS.render_megakernel_stream,
                 "mxu": FM.render_megakernel_mxu, "hybrid": FH.render_megakernel_hybrid,
                 "composite": CG.composite, "raster_pass": RG.raster_pass,
@@ -524,7 +576,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                 "mxu": {"mxu": 1, "shade_stack": 1, "composite": 1},
                 "hybrid": {"hybrid": 1, "composite": 1},
                 "layered": {"composite": 1, "raster_pass": 7, "shade_stack": 1},
-                "per_pass": {"raster_pass": 7}}
+                "per_pass": {"raster_pass": 7},
+                "default": {"frame": 1, "composite": 1}}
     mask = torch.zeros(j, dtype=torch.bool, device=dev)
     mask[2] = True
     target = torch.zeros((j, 4), device=dev)
@@ -563,6 +616,67 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         require(launches[name] == want, (name, "launches", launches[name], want))
         require((frames[-1] - frames[0]).abs().max().item() > 0.05,
                 (name, "the tween moves the pose"))
+    phys = states["default"].physics
+    phase("path", name="default", contact_overflow=int(states["default"].diag.contact_overflow),
+          body_pos=[round(v, 5) for v in phys.position[1].tolist()])
+    require(bool(phys.initialized) and bool(torch.isfinite(phys.position).all()),
+            "default path: physics state")
+    require(abs(phys.position[1, 1].item() - 2.0) > 1e-3, "default path: the dynamic body moves")
+
+    # 4b. physics on the rig: the card's trajectory against the CPU's (its
+    # cost is measured last, phase 8)
+    rig = {d: testing.make_physics_rig(RIG_SEED, device=d) for d in ("cpu", dev)}
+    rig_plan = {d: solver.prepare(EngineConfig(), pm) for d, (pm, _, _) in rig.items()}
+    rig_states, traj = {}, {}
+    for run_name, d in (("cpu", "cpu"), ("witness", "cpu"), ("gpu", dev)):
+        pm, wq_r, wp_r = rig[d]
+        plan_d = rig_plan[d]
+        st_r = init_physics_state(pm.bone_index.shape[0], d)
+        dt_r = torch.tensor(1 / 60, device=d)
+        out = []
+        for f in range(RIG_FRAMES):
+            _, _, st_r, ovf = solver.step(plan_d, st_r, dt_r, wq_r, wp_r)
+            if f == 0 and run_name == "witness":
+                st_r = dataclasses.replace(
+                    st_r, position=torch.nextafter(st_r.position, st_r.position + 1))
+            viol = solver._joint_violations(plan_d.all_joints, st_r.position, st_r.quat)
+            out.append((st_r.position, st_r.quat, ovf, torch.stack(
+                [viol[0].abs().max(), viol[1].abs().max(),
+                 torch.linalg.norm(st_r.lin_vel, dim=1).max()])))
+        rig_states[run_name] = st_r
+        traj[run_name] = [(p.cpu(), q.cpu(), int(o), m.cpu()) for p, q, o, m in out]
+
+    def gaps(run_name):
+        return [max((p - pc).abs().max().item(), (q - qc).abs().max().item())
+                for (p, q, _, _), (pc, qc, _, _) in zip(traj[run_name], traj["cpu"])]
+
+    def by_10(e):
+        return [f"{max(e[i:i + 10]):.3g}" for i in range(0, RIG_FRAMES, 10)]
+
+    def late_max(run_name):
+        """Largest linear and angular joint violation and body speed after
+        the early frames."""
+        return torch.stack([m for _, _, _, m in traj[run_name][RIG_EARLY:]]).amax(0)
+
+    errs, w_errs = gaps("gpu"), gaps("witness")
+    ovf_g, ovf_c = [o for _, _, o, _ in traj["gpu"]], [o for _, _, o, _ in traj["cpu"]]
+    late_g, late_c, late_w = late_max("gpu"), late_max("cpu"), late_max("witness")
+    t_rig = rig_plan[dev].tables
+    phase("physics", rig=f"{rig[dev][0].n_bodies}_bodies_{rig[dev][0].n_joints}_joints",
+          colors=len(t_rig.color_starts) - 1, pairs=len(t_rig.pair_i), n_active=t_rig.n_active,
+          frames=RIG_FRAMES, early_err=f"{max(errs[:RIG_EARLY]):.3g}",
+          err_by_10_frames=by_10(errs), witness_err_by_10_frames=by_10(w_errs),
+          late_viol_lin_ang_speed={"gpu": [round(v, 4) for v in late_g.tolist()],
+                                   "cpu": [round(v, 4) for v in late_c.tolist()],
+                                   "witness": [round(v, 4) for v in late_w.tolist()]},
+          contact_overflow_gpu=max(ovf_g), contact_overflow_cpu=max(ovf_c),
+          overflow_frames_differ=sum(a != b for a, b in zip(ovf_g, ovf_c)))
+    require(all(torch.isfinite(p).all() and torch.isfinite(q).all()
+                for p, q, _, _ in traj["gpu"]), "rig trajectory finite")
+    require(max(errs[:RIG_EARLY]) <= RIG_EARLY_TOL, ("rig early frames, GPU vs CPU", errs))
+    require(ovf_g[:RIG_EARLY] == ovf_c[:RIG_EARLY], ("rig contact overflow", ovf_g, ovf_c))
+    require(bool(((late_g <= RIG_SPREAD * late_c) & (late_c <= RIG_SPREAD * late_g)).all()),
+            ("rig joints and speeds, GPU vs CPU", late_g.tolist(), late_c.tolist()))
 
     # 5. timing: host clock over state-carrying steps (the step is
     # host-bound), the paths in turns in this one call; the kernels' own
@@ -713,6 +827,53 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             phase("profile", name=name, card=smi,
                   **profile_step(steps[name], states[name],
                                  (dt, vp, eye, lights, track, breath)))
+
+    # 8. the rig's cost, after every other measurement: its long
+    # profiles (tens of thousands of launches a frame) come last
+    _, wq_r, wp_r = rig[dev]
+    plan_r, dt_r = rig_plan[dev], torch.tensor(1 / 60, device=dev)
+    h = np.float32(plan_r.cfg.physics_fixed_dt)
+    rig_box = [rig_states["gpu"]]
+
+    def rig_frames(n):
+        """n frames -> the accumulators before and after each (tensors, read
+        once the frames are done)."""
+        accums = []
+        for _ in range(n):
+            a0 = rig_box[0].time_accum
+            _, _, rig_box[0], _ = solver.step(plan_r, rig_box[0], dt_r, wq_r, wp_r)
+            accums.append((a0, rig_box[0].time_accum))
+        return accums
+
+    rig_ms = []
+    for _ in range(2):
+        rig_frames(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rig_frames(RIG_TIMED)
+        torch.cuda.synchronize()
+        rig_ms.append((time.perf_counter() - t0) / RIG_TIMED * 1e3)
+    accums = []
+    frame_prof = profile_calls(lambda: accums.extend(rig_frames(1)), RIG_TIMED)
+    subs = sum(round((a0.item() + 1 / 60 - a1.item()) / float(h)) for a0, a1 in accums)
+    st_r = rig_box[0]
+    carry = [(st_r.position, st_r.quat, st_r.lin_vel, st_r.ang_vel,
+              torch.zeros((), dtype=torch.int64, device=dev))]
+
+    def one_substep():
+        carry[0] = solver.substep(plan_r, *carry[0])
+
+    sub_prof = profile_calls(one_substep, 4)
+    phase("physics", card=smi, subs_per_frame=subs / RIG_TIMED,
+          ms_per_frame="/".join(f"{x:.3f}" for x in rig_ms),
+          profiled_ms_per_frame=frame_prof["wall_ms"],
+          device_ms_per_frame=frame_prof["device_busy_ms"],
+          launches_per_frame=frame_prof["launch_calls"],
+          device_ops_per_frame=frame_prof["device_ops"],
+          substep_ms=sub_prof["wall_ms"], substep_device_ms=sub_prof["device_busy_ms"],
+          launches_per_substep=sub_prof["launch_calls"],
+          device_ops_per_substep=sub_prof["device_ops"],
+          substep_top_host=sub_prof["top_host_ms"][:3])
 
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [

@@ -126,7 +126,7 @@ def breathing_rotation(base_rot: Tensor, ranges: Tensor, t_since_start: Tensor,
     u = m3.ease_in_out(torch.clamp(phase - k, 0.0, 1.0))
     sign_target = torch.where(torch.remainder(k, 2.0) < 1.0, -1.0, 1.0)
     sign_start = torch.where(k < 1.0, torch.zeros_like(k), -sign_target)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], device=ranges.device)
+    x_axis = m3.const((1.0, 0.0, 0.0), ranges.dtype, ranges.device)
 
     def euler_x(sign):
         return m3.quat_from_euler_zxy(sign[..., None] * ranges[:, None] * x_axis)

@@ -15,8 +15,21 @@ import torch
 Tensor = torch.Tensor
 
 
-def _const(values, like: Tensor) -> Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+_CONSTS: dict = {}
+
+
+def const(values: tuple, dtype=torch.float32, device="cuda") -> Tensor:
+    """A constant tensor of ``values``, made once per device and dtype and
+    then reused: copying host values to the card waits for its stream, so
+    a per-call copy would stall every step. For a few fixed values only;
+    raises if a caller wrote to the shared tensor in place."""
+    key = (values, dtype, torch.device(device))
+    c = _CONSTS.get(key)
+    if c is None:
+        c = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    elif c._version:
+        raise RuntimeError(f"the shared constant {values} was written in place")
+    return c
 
 
 def ease_in_out(t: Tensor) -> Tensor:
@@ -39,14 +52,14 @@ def quat_mul(a: Tensor, b: Tensor) -> Tensor:
 
 
 def quat_conj(q: Tensor) -> Tensor:
-    return q * _const([-1.0, -1.0, -1.0, 1.0], q)
+    return q * const((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
 
 
 def quat_normalize(q: Tensor, eps: float = 0.0) -> Tensor:
     """Normalize; zero length becomes identity."""
     n = torch.linalg.norm(q, dim=-1, keepdim=True)
     out = q / torch.where(n > eps, n, torch.ones_like(n))
-    ident = _const([0.0, 0.0, 0.0, 1.0], q).expand(q.shape)
+    ident = const((0.0, 0.0, 0.0, 1.0), q.dtype, q.device).expand(q.shape)
     return torch.where(n > eps, out, ident)
 
 
@@ -132,12 +145,13 @@ def mat4_from_rot_pos(rot3: Tensor, pos: Tensor) -> Tensor:
     rot3 = rot3.expand(batch + (3, 3))
     pos = pos.expand(batch + (3,))
     top = torch.cat([rot3, pos[..., :, None]], dim=-1)
-    bottom = _const([0.0, 0.0, 0.0, 1.0], rot3).expand(batch + (1, 4))
+    bottom = const((0.0, 0.0, 0.0, 1.0), rot3.dtype, rot3.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
 def mat4_inverse(m: Tensor) -> Tensor:
-    return torch.linalg.inv(m)
+    # inv_ex: linalg.inv reads the solver's status back to the host
+    return torch.linalg.inv_ex(m).inverse
 
 
 def perspective_lh(fov: float, aspect: float, near: float, far: float,

@@ -206,8 +206,8 @@ class Morphs:
 
 @_frozen
 class PhysicsModel:
-    """Rigid-body and joint tables. Carried with the model; the port does
-    not step physics yet (``step.make_step`` refuses ``enable_physics``)."""
+    """Rigid-body and joint tables, stepped by ``physics.solver`` when
+    ``EngineConfig.enable_physics`` is on (the default)."""
 
     bone_index: Tensor
     shape: Tensor
@@ -332,6 +332,17 @@ def _quat0(n: int, device) -> Tensor:
     return q
 
 
+def init_physics_state(n_bodies: int, device="cuda") -> PhysicsState:
+    """Bodies not yet placed: the first step puts them at their bones."""
+    def f(*shape):
+        return torch.zeros(shape, device=device)
+
+    return PhysicsState(position=f(n_bodies, 3), quat=_quat0(n_bodies, device),
+                        lin_vel=f(n_bodies, 3), ang_vel=f(n_bodies, 3),
+                        initialized=torch.zeros((), dtype=torch.bool, device=device),
+                        time_accum=f())
+
+
 def init_scene_state(model: ModelArrays) -> SceneState:
     device = model.skeleton.parent.device
     j = model.skeleton.j
@@ -356,11 +367,7 @@ def init_scene_state(model: ModelArrays) -> SceneState:
             start_time=f(j),
             duration=torch.ones(j, device=device),
         ),
-        physics=PhysicsState(
-            position=f(nb, 3), quat=_quat0(nb, device), lin_vel=f(nb, 3),
-            ang_vel=f(nb, 3), initialized=scalar(False, torch.bool),
-            time_accum=scalar(0.0),
-        ),
+        physics=init_physics_state(nb, device),
         playing=scalar(False, torch.bool),
         play_t0=scalar(0.0),
         diag=DiagState(pair_overflow=scalar(0, torch.int64),

@@ -96,11 +96,10 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
     zb = torch.sum(tri.eb * tri.z, dim=1) * inv2a
     zc = torch.sum(tri.ec * tri.z, dim=1) * inv2a
 
-    big = torch.tensor(1e9, device=dev)
-    xmin = torch.where(tri.valid, tri.sx.amin(1), big)
-    xmax = torch.where(tri.valid, tri.sx.amax(1), -big)
-    ymin = torch.where(tri.valid, tri.sy.amin(1), big)
-    ymax = torch.where(tri.valid, tri.sy.amax(1), -big)
+    xmin = torch.where(tri.valid, tri.sx.amin(1), 1e9)
+    xmax = torch.where(tri.valid, tri.sx.amax(1), -1e9)
+    ymin = torch.where(tri.valid, tri.sy.amin(1), 1e9)
+    ymax = torch.where(tri.valid, tri.sy.amax(1), -1e9)
 
     ea = tri.ea * inv2a[:, None]
     eb = tri.eb * inv2a[:, None]
@@ -163,13 +162,12 @@ def pack_frame_rows(parts, by: int, bx: int) -> FrameTables:
     b_total = by * bx
     nseg = N_PASSES * b_total
     dev = parts[0][0].device
-    keys, offs = [], []
-    off = 0
+    keys = []
+    off = 0  # the pass's first row in the joined table, carried in the key
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
-        keys.append(torch.where(ok, ((p * b_total + bin_id) << 32) + tri_of_k + 1,
+        keys.append(torch.where(ok, ((p * b_total + bin_id) << 32) + tri_of_k + off + 1,
                                 (nseg << 32) + 1))
-        offs.append(off)
         off += tab.shape[0]
         overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
     markers = torch.arange(nseg + 1, dtype=torch.int64, device=dev) << 32
@@ -178,9 +176,7 @@ def pack_frame_rows(parts, by: int, bx: int) -> FrameTables:
     sk = key >> 32
     is_pair = (tri_f != 0) & (sk < nseg)
     tab_all = torch.cat([pp[0] for pp in parts] + [torch.zeros((1, ROW_W), device=dev)])
-    pass_of = torch.where(is_pair, torch.div(sk, b_total, rounding_mode="floor"), 0)
-    offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
-    row_idx = torch.where(is_pair, offs_t[pass_of] + tri_f - 1, tab_all.shape[0] - 1)
+    row_idx = torch.where(is_pair, tri_f - 1, tab_all.shape[0] - 1)
     rows = tab_all[row_idx]
     p_s = torch.searchsorted(key, markers)  # marker positions (keys are unique)
     starts = p_s[:-1] + 1

@@ -71,24 +71,24 @@ def pack_stream(parts, by: int, bx: int) -> StreamTables:
     b_total = by * bx
     dev = parts[0][0].device
     dead = (b_total * 8) << 32
-    keys, offs = [], []
-    off = 0
+    keys = []
+    off = 0  # the pass's first row in the joined table, carried in the key
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
-        keys.append(torch.where(ok, ((bin_id * 8 + p) << 32) + tri_of_k, dead))
-        offs.append(off)
+        keys.append(torch.where(ok, ((bin_id * 8 + p) << 32) + tri_of_k + off, dead))
         off += tab.shape[0]
         overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
     tab_all = torch.cat([pp[0] for pp in parts])
     key, _ = torch.sort(torch.cat(keys))
     cap = key.shape[0]
     sk = key >> 32  # tile * 8 + pass
-    live = sk < b_total * 8
-    pass_of = torch.where(live, sk & 7, 0)
-    offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
-    row_idx = torch.where(live, offs_t[pass_of] + (key & 0xFFFFFFFF), 0)
+    n_q = b_total * 8
+    live = sk < n_q
+    row_idx = torch.where(live, key & 0xFFFFFFFF, 0)
     rows = torch.where(live[:, None], tab_all[row_idx], 0.0)
-    counts_q = torch.bincount(sk[live], minlength=b_total * 8)
+    # a fixed-size count (bincount of a masked tensor reads its size on the host)
+    counts_q = torch.zeros(n_q + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, torch.clamp(sk, max=n_q), torch.ones_like(sk))[:n_q]
     bounds = torch.clamp(torch.cumsum(counts_q, 0) - counts_q, max=cap)
     rows = torch.cat([rows, torch.zeros((WINDOW, FG.ROW_W), device=dev)])
     return StreamTables(rows=rows.contiguous(),

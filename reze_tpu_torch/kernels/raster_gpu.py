@@ -86,11 +86,10 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     zb = torch.sum(tri.eb * tri.z, dim=1) * inv2a
     zc = torch.sum(tri.ec * tri.z, dim=1) * inv2a
 
-    big = torch.tensor(1e9, device=dev)
-    xmin = torch.where(tri.valid, tri.sx.amin(1), big)
-    xmax = torch.where(tri.valid, tri.sx.amax(1), -big)
-    ymin = torch.where(tri.valid, tri.sy.amin(1), big)
-    ymax = torch.where(tri.valid, tri.sy.amax(1), -big)
+    xmin = torch.where(tri.valid, tri.sx.amin(1), 1e9)
+    xmax = torch.where(tri.valid, tri.sx.amax(1), -1e9)
+    ymin = torch.where(tri.valid, tri.sy.amin(1), 1e9)
+    ymax = torch.where(tri.valid, tri.sy.amax(1), -1e9)
 
     ea = tri.ea * inv2a[:, None]
     eb = tri.eb * inv2a[:, None]

@@ -66,10 +66,10 @@ def setup_triangles(corners_clip: Tensor, valid: Tensor, width: int, height: int
 
     orient = torch.where(area2 < 0, 1.0, -1.0)
     # edge k is opposite corner k: (v1, v2), (v2, v0), (v0, v1)
-    ia = [1, 2, 0]
-    ib = [2, 0, 1]
-    ax_, ay_ = sx[:, ia], sy[:, ia]
-    bx_, by_ = sx[:, ib], sy[:, ib]
+    # (v1, v2, v0) and (v2, v0, v1) as rolls: indexing with a list would
+    # copy it to the device and wait for the stream
+    ax_, ay_ = torch.roll(sx, -1, 1), torch.roll(sy, -1, 1)
+    bx_, by_ = torch.roll(sx, 1, 1), torch.roll(sy, 1, 1)
     ea = (by_ - ay_) * orient[:, None]
     eb = (ax_ - bx_) * orient[:, None]
     ec = -(ea * ax_ + eb * ay_)

@@ -58,7 +58,7 @@ def solve_ik(skel: Skeleton, ik: IKChains, local_rot: Tensor, local_trans: Tenso
     base_bone = skel.parent[top_bone]
     has_base = (base_bone >= 0)[:, None]
     base_safe = torch.clamp(base_bone, min=0)
-    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=wq.device)
+    ident = m3.const((0.0, 0.0, 0.0, 1.0), wq.dtype, wq.device)
     bq = torch.where(has_base, wq[base_safe], ident)
     bp = torch.where(has_base, wp[base_safe], torch.zeros_like(wp[base_safe]))
 

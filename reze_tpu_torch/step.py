@@ -4,7 +4,8 @@
 ``make_step(model, cfg)`` returns ``step(state, dt, view_proj, eye_pos,
 lights, track, breath) -> (state', frame (H, W, 3))``. ``simulate`` runs
 animation sampling, breathing, tweens, bone/UV/material morphs, CCD IK,
-FK and skinning. The frame goes, as in the reference, through
+FK, rigid-body physics (``physics.solver``, when ``enable_physics`` is on
+and the model has bodies) and skinning. The frame goes, as in the reference, through
 ``pipeline_gpu.render_frame_mega`` when ``use_megakernel`` and
 ``layered_shading`` are both on: the megakernel that ``cfg.rasterizer``
 names (``"group"``: the frame megakernel; ``"hybrid"``; ``"mxu"`` or
@@ -15,8 +16,8 @@ stack-shade and composite kernels or plain per-pass shading), which never
 reads ``cfg.rasterizer``.
 
 Not ported yet, and refused rather than skipped (ROADMAP queue 1):
-rigid-body physics (item 4), bilinear albedo on the layered paths, which
-needs the quad composite (item 7), and the XLA-oracle renderer (item 8).
+bilinear albedo on the layered paths, which needs the quad composite, and
+the XLA-oracle renderer.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .core import math3d as m3
 from .core.types import DiagState, EngineConfig, ModelArrays, SceneState
 from .kernels import shade_gpu as SG
 from .kernels.skinning import skin_vertices
+from .physics import solver as physics_solver
 from .render import pipeline_gpu
 from .render import shading_fast as SF
 from .skeleton import fk
@@ -37,18 +39,13 @@ from .skeleton import ik as ik_mod
 
 
 def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
-    if cfg.enable_physics and model.physics.n_bodies > 0:
-        raise NotImplementedError(
-            "rigid-body physics is not ported yet (ROADMAP queue 1, item 4); "
-            "use EngineConfig(enable_physics=False)")
     if cfg.renderer not in ("auto", "tpu"):
         raise NotImplementedError(
-            f"EngineConfig renderer={cfg.renderer!r} is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+            f"EngineConfig renderer={cfg.renderer!r} is not ported yet (ROADMAP queue 1)")
     if cfg.albedo_bilinear and cfg.layered_shading:
         raise NotImplementedError(
             "EngineConfig albedo_bilinear=True needs the quad composite, which is not "
-            "ported yet (ROADMAP queue 1, item 7)")
+            "ported yet (ROADMAP queue 1)")
 
 
 def _uses_megakernel(cfg: EngineConfig) -> bool:
@@ -65,10 +62,14 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     mega = _uses_megakernel(cfg)
     # material table of the non-layered per-pass shading
     packed = None if cfg.layered_shading else SF.pack_materials(model.materials, model.atlas)
+    # the solver's static tables, read from the model once, here
+    phys = (physics_solver.prepare(cfg, model.physics)
+            if cfg.enable_physics and model.physics.n_bodies > 0 else None)
 
     def simulate(state: SceneState, dt, track, breath):
-        """Animation + IK/FK + skinning -> (t, rot, trans, mw, tween_state,
-        pos, nrm, uvs, mat_mod)."""
+        """Animation + IK/FK + physics + skinning -> (t, rot, trans, mw,
+        tween_state, phys_state, contact_overflow, pos, nrm, uvs, mat_mod),
+        the reference's tuple."""
         t = state.time + dt
         clip_t = t - state.play_t0
 
@@ -117,16 +118,24 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
             rot = ik_mod.solve_ik(model.skeleton, model.ik, rot, trans)
         wq, wp = fk.world_transforms(model.skeleton, rot, trans)
 
-        # 4. skinning (morph blend + LBS/SDEF)
+        # 4. physics (writes the world transforms of dynamic bodies' bones)
+        phys_state = state.physics
+        contact_overflow = torch.zeros_like(state.diag.contact_overflow)
+        if phys is not None:
+            wq, wp, phys_state, contact_overflow = physics_solver.step(
+                phys, phys_state, dt, wq, wp)
+
+        # 5. skinning (morph blend + LBS/SDEF)
         palette = fk.skin_palette(model.skeleton, wq, wp)
         pos, nrm = skin_vertices(model.geometry, model.skinning, palette,
                                  morphs=model.morphs, morph_weights=mw,
                                  world_quat_palette=wq)
-        return t, rot, trans, mw, tween_state, pos, nrm, uvs, mat_mod
+        return (t, rot, trans, mw, tween_state, phys_state, contact_overflow, pos, nrm, uvs,
+                mat_mod)
 
     def step(state: SceneState, dt, view_proj, eye_pos, lights, track, breath):
-        t, rot, trans, mw, tween_state, pos, nrm, uvs, mat_mod = simulate(
-            state, dt, track, breath)
+        (t, rot, trans, mw, tween_state, phys_state, contact_overflow, pos, nrm, uvs,
+         mat_mod) = simulate(state, dt, track, breath)
         if mega:
             frame, pair_overflow = pipeline_gpu.render_frame_mega(
                 model, cfg, dims, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
@@ -137,9 +146,8 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
                 mat_mod=mat_mod, shade_tables=shade_tables)
         new_state = dataclasses.replace(
             state, time=t, local_rot=rot, local_trans=trans, morph_weights=mw,
-            tween=tween_state,
-            diag=DiagState(pair_overflow=pair_overflow,
-                           contact_overflow=torch.zeros_like(pair_overflow)))
+            tween=tween_state, physics=phys_state,
+            diag=DiagState(pair_overflow=pair_overflow, contact_overflow=contact_overflow))
         return new_state, frame
 
     step.simulate = simulate

@@ -3,7 +3,9 @@
 ``make_test_model`` builds the same tiny but complete model as
 ``reze_tpu.testing.make_test_model`` (identical arrays for the same
 arguments): a bone chain with an append, one IK chain, one textured quad
-per draw class, one vertex morph and two rigid bodies. ``random_pass_inputs``
+per draw class, one vertex morph and two rigid bodies. ``make_physics_rig``
+builds a seeded hair-and-skirt rig at the flagship model's physics width.
+``random_pass_inputs``
 makes seeded random triangles for the pair-pack and kernel checks, and
 ``random_stack`` a seeded fragment stack for the stack shade.
 """
@@ -168,6 +170,172 @@ def make_test_model(n_bones: int = 8, j_pad: int = 8, v_pad: int = 64,
         materials=materials, atlas=atlas, morphs=morphs, physics=physics,
     )
     return bridge.from_jax_arrays(model, device)
+
+
+def _np_quat_y(angle):
+    """(..., 4) quaternions of rotations by ``angle`` about +Y."""
+    angle = np.asarray(angle, np.float64)
+    q = np.zeros(angle.shape + (4,))
+    q[..., 1], q[..., 3] = np.sin(angle / 2), np.cos(angle / 2)
+    return q
+
+
+def _np_rotate_inv(q, v):
+    """Rotate ``v`` by the inverse of the unit quaternion ``q``."""
+    qv, w = -q[..., :3], q[..., 3:]
+    t = 2.0 * np.cross(qv, v)
+    return v + w * t + np.cross(qv, t)
+
+
+def make_physics_rig(seed: int, n_bodies: int = 257, n_joints: int = 406, device="cuda"):
+    """A seeded procedural hair-and-skirt rig at the flagship model's
+    physics width (257 bodies, 406 joints by default) -> (PhysicsModel,
+    bone world rotations (J, 4), bone world positions (J, 3)), one bone
+    per body, on ``device``.
+
+    Five kinematic anchors (head and chest spheres, a hip box, two leg
+    capsules); hair chains of four capsules ending in a sphere, hung from
+    the head and swung 50 degrees out from vertical, so they fall and
+    swing; a skirt of ``rows`` rings of thin boxes hung from the hips,
+    each column a chain and each ring closed by cross joints with linear
+    springs. Hair joints lock their linear axes, carry angular limits and,
+    on every other chain, angular springs; skirt chain joints lock their
+    linear axes and their twist; joints beyond these link neighbouring
+    hair chains. The joints need several colours. Hair collides with the
+    anchors and with the other parity of chains, the skirt with the hips
+    and legs: several thousand candidate pairs against the default
+    512-contact cap. Sizes, masses and damping are jittered by the seed.
+    """
+    rng = np.random.default_rng(seed)
+    n_dyn = n_bodies - 5
+    rows = 8 if n_dyn >= 128 else 4
+    cols = (n_dyn // 2) // rows
+    n_skirt = rows * cols
+    n_hair = n_dyn - n_skirt
+    chain_len = 4
+    n_chains = -(-n_hair // chain_len)
+
+    pos = np.zeros((n_bodies, 3))
+    quat = np.zeros((n_bodies, 4))
+    quat[:, 3] = 1.0
+    shape = np.zeros(n_bodies, np.int32)
+    size = np.zeros((n_bodies, 3))
+    group = np.zeros(n_bodies, np.int32)
+    mask = np.zeros(n_bodies, np.int32)
+    # anchors: head, chest, hips, left and right leg
+    pos[:5] = [(0, 16, 0), (0, 13, 0), (0, 10, 0), (-0.9, 7, 0), (0.9, 7, 0)]
+    shape[:5] = [0, 0, 1, 2, 2]
+    size[:5] = [(1.2, 0, 0), (1.5, 0, 0), (1.8, 0.6, 1.1), (0.8, 4.0, 0), (0.8, 4.0, 0)]
+    group[:5] = [0, 0, 0, 4, 4]
+    mask[:5] = [0b1110, 0b1110, 0b0110, 0b0100, 0b0100]
+
+    joints = []  # (body a, body b, world anchor, per-joint kind)
+    # hair: chain c from the head at angle th, tilted out by 50 degrees
+    hair = np.arange(5, 5 + n_hair)
+    level_of = {}
+    for k, b in enumerate(hair):
+        c, lvl = divmod(k, chain_len)
+        th = 2 * np.pi * c / n_chains
+        out = np.array([np.cos(th), 0.0, np.sin(th)])
+        d = np.sin(np.radians(50)) * out - np.cos(np.radians(50)) * np.array([0, 1, 0])
+        root = pos[0] + 1.25 * out
+        pos[b] = root + d * 0.8 * (lvl + 0.5)
+        last = lvl == chain_len - 1 or k == n_hair - 1
+        shape[b] = 0 if last else 2
+        size[b] = (0.12, 0, 0) if last else (0.1, 0.5, 0)
+        group[b] = 1 if c % 2 == 0 else 3
+        mask[b] = 0b0001 | (0b1000 if c % 2 == 0 else 0b0010)
+        parent = 0 if lvl == 0 else b - 1
+        joints.append((parent, b, root + d * 0.8 * lvl, "hair", c))
+        level_of[(c, lvl)] = b
+    # skirt: column c at angle ph, ring r flaring out and down
+    for k in range(n_skirt):
+        r, c = divmod(k, cols)
+        b = 5 + n_hair + k
+        ph = 2 * np.pi * c / cols
+        rad = 2.2 + 0.35 * r
+        pos[b] = (rad * np.cos(ph), 9.4 - 0.9 * r, rad * np.sin(ph))
+        quat[b] = _np_quat_y(-ph)
+        shape[b] = 1
+        size[b] = (0.5, 0.45, 0.08)
+        group[b], mask[b] = 2, 0b10001
+        parent = 2 if r == 0 else b - cols
+        joints.append((parent, b, (pos[parent] + pos[b]) / 2 if r else
+                       pos[b] + (0, 0.45, 0), "skirt", c))
+    for k in range(n_skirt):
+        r, c = divmod(k, cols)
+        b = 5 + n_hair + k
+        nb = 5 + n_hair + r * cols + (c + 1) % cols
+        joints.append((b, nb, (pos[b] + pos[nb]) / 2, "ring", c))
+    extra = n_joints - len(joints)
+    if extra < 0:
+        raise ValueError(f"{n_joints} joints cannot hold the rig's {len(joints)}")
+    for lvl in range(1, chain_len):
+        for c in range(n_chains):
+            a, b = level_of.get((c, lvl)), level_of.get(((c + 1) % n_chains, lvl))
+            if extra and a is not None and b is not None and a != b:
+                joints.append((a, b, (pos[a] + pos[b]) / 2, "link", c))
+                extra -= 1
+    if extra:
+        raise ValueError(f"the rig cannot place {n_joints} joints")
+
+    is_dyn = np.arange(n_bodies) >= 5
+    mass = np.where(is_dyn, rng.uniform(0.5, 1.5, n_bodies), 0.0)
+    size = size * np.where(is_dyn, rng.uniform(0.9, 1.1, n_bodies), 1.0)[:, None]
+    r0, r1 = size[:, 0], size[:, 1]
+    inertia = np.where(shape[:, None] == 1, (size[:, [1, 2, 0]] ** 2 + size[:, [2, 0, 1]] ** 2) / 3,
+                       np.where(shape[:, None] == 2,
+                                np.stack([(3 * r0 ** 2 + r1 ** 2) / 12, r0 ** 2 / 2,
+                                          (3 * r0 ** 2 + r1 ** 2) / 12], 1),
+                                0.4 * r0[:, None] ** 2)) * mass[:, None]
+    inv_i = np.where(is_dyn[:, None], 1.0 / np.maximum(inertia, 1e-6), 0.0)
+
+    nj = len(joints)
+    ja = np.array([j[0] for j in joints], np.int32)
+    jb = np.array([j[1] for j in joints], np.int32)
+    anchor = np.stack([np.asarray(j[2], np.float64) for j in joints])
+    kind = [j[3] for j in joints]
+    lin_min, lin_max = np.zeros((nj, 3)), np.zeros((nj, 3))
+    ang_min, ang_max = np.zeros((nj, 3)), np.zeros((nj, 3))
+    k_lin, k_ang = np.zeros((nj, 3)), np.zeros((nj, 3))
+    for i, (_, _, _, kd, c) in enumerate(joints):
+        if kd == "hair":
+            ang_min[i], ang_max[i] = -0.6, 0.6
+            k_ang[i] = 20.0 if c % 2 == 0 else 0.0
+        elif kd == "skirt":
+            ang_min[i], ang_max[i] = (-0.5, 0.0, -0.3), (0.8, 0.0, 0.3)
+            k_ang[i] = 10.0
+        else:  # ring and hair links: stretchy, with linear springs
+            lin_min[i], lin_max[i] = -0.3, 0.3
+            ang_min[i], ang_max[i] = -1.0, 1.0
+            k_lin[i] = 50.0
+    qa, qb = quat[ja], quat[jb]
+    conj = lambda q: q * (-1.0, -1.0, -1.0, 1.0)  # noqa: E731
+    pm = T.PhysicsModel(
+        bone_index=np.arange(n_bodies, dtype=np.int32), shape=shape,
+        size=size.astype(np.float32), mass=mass.astype(np.float32),
+        inv_mass=np.where(is_dyn, 1.0 / np.maximum(mass, 1e-6), 0.0).astype(np.float32),
+        inv_inertia_local=inv_i.astype(np.float32),
+        linear_damping=np.where(is_dyn, rng.uniform(0.5, 0.9, n_bodies), 0.0).astype(np.float32),
+        angular_damping=np.where(is_dyn, rng.uniform(0.8, 0.99, n_bodies), 0.0).astype(np.float32),
+        restitution=rng.choice([0.0, 0.0, 0.2], n_bodies).astype(np.float32),
+        friction=np.full(n_bodies, 0.5, np.float32), is_dynamic=is_dyn,
+        no_contact=np.zeros(n_bodies, bool), group=group, collision_mask=mask,
+        body_offset_pos=np.zeros((n_bodies, 3), np.float32),
+        body_offset_quat=np.tile(np.array([0, 0, 0, 1], np.float32), (n_bodies, 1)),
+        bind_pos=pos.astype(np.float32), valid=np.ones(n_bodies, bool),
+        joint_body_a=ja, joint_body_b=jb,
+        joint_pos_a=_np_rotate_inv(qa, anchor - pos[ja]).astype(np.float32),
+        joint_quat_a=conj(qa).astype(np.float32),
+        joint_pos_b=_np_rotate_inv(qb, anchor - pos[jb]).astype(np.float32),
+        joint_quat_b=conj(qb).astype(np.float32),
+        joint_lin_min=lin_min.astype(np.float32), joint_lin_max=lin_max.astype(np.float32),
+        joint_ang_min=ang_min.astype(np.float32), joint_ang_max=ang_max.astype(np.float32),
+        joint_spring_lin=k_lin.astype(np.float32), joint_spring_ang=k_ang.astype(np.float32),
+        joint_valid=np.ones(nj, bool), n_bodies=n_bodies, n_joints=nj)
+    return (bridge.from_jax_arrays(pm, device),
+            bridge.from_jax_arrays(quat.astype(np.float32), device),
+            bridge.from_jax_arrays(pos.astype(np.float32), device))
 
 
 def empty_morph_tables(offsets: np.ndarray, n_mats: int) -> T.Morphs:

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain torch twins on the card, and the
 whole step on the GPU against the step on the CPU, for the main path, the
-three other megakernels (``rasterizer`` "stream", "mxu", "hybrid") and
-both per-pass paths. Marked ``cuda``: every test skips without a CUDA
+three other megakernels (``rasterizer`` "stream", "mxu", "hybrid"), both
+per-pass paths and the default configuration with physics; each path's
+step free of synchronising copies; the rigid-body solver on the card
+against its CPU run. Marked ``cuda``: every test skips without a CUDA
 device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
@@ -10,7 +12,15 @@ Every kernel but the composite does the same float and integer operations
 as its twin: every output channel equal (``testing.bit_diff``; for the
 raster pass also ``testing.compare_raster``). The composite is held to
 1e-6 and a frame to 1/255 on 99 % of pixels, the CPU parity tests'
-bounds."""
+bounds. The solver's trajectories on the card and the CPU part in the
+last bits (the two sum in other orders and round library functions
+differently, and the card's index_add_ adds in no fixed order) and the
+gap grows with frames: bodies within ``RIG_TOL`` =
+1e-3 over the rig's first 10 frames and within ``SCENE_TOL`` = 1e-4 over
+the contact scene's 60."""
+
+import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -18,7 +28,9 @@ import torch
 
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.camera import Camera
-from reze_tpu_torch.core.types import EngineConfig, init_scene_state
+from reze_tpu_torch import bridge
+from reze_tpu_torch.core.types import EngineConfig, init_physics_state, init_scene_state
+from reze_tpu_torch.core.types import PhysicsModel as PT_PhysicsModel
 from reze_tpu_torch.kernels import composite_gpu as CG
 from reze_tpu_torch.kernels import frame_gpu as FG
 from reze_tpu_torch.kernels import frame_hybrid as FH
@@ -26,6 +38,7 @@ from reze_tpu_torch.kernels import frame_mxu as FM
 from reze_tpu_torch.kernels import frame_stream as FS
 from reze_tpu_torch.kernels import raster_gpu as RG
 from reze_tpu_torch.kernels import shade_gpu as SG
+from reze_tpu_torch.physics import solver
 from reze_tpu_torch.render import pipeline
 from reze_tpu_torch.step import make_step
 
@@ -285,32 +298,140 @@ def test_megakernel_wrappers_refuse_bad_inputs(dev):
         FS.render_megakernel_stream(st, hp=32, wp=128, n_samples=4)
 
 
-@pytest.mark.parametrize("change", [{}, {"rasterizer": "stream"}, {"rasterizer": "mxu"},
-                                    {"rasterizer": "hybrid"}, {"use_megakernel": False},
-                                    {"layered_shading": False}],
-                         ids=["main", "stream", "mxu", "hybrid", "layered", "per_pass"])
-def test_step_on_gpu_matches_cpu(dev, change):
-    cfg = EngineConfig(width=256, height=128, enable_physics=False, **change)
-    cam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0), aspect=2.0)
-    frames = {}
+PATHS = {"main": {}, "stream": {"rasterizer": "stream"}, "mxu": {"rasterizer": "mxu"},
+         "hybrid": {"rasterizer": "hybrid"}, "layered": {"use_megakernel": False},
+         "per_pass": {"layered_shading": False}, "default": {"enable_physics": True}}
+
+
+def _step_args(model, cfg, d):
+    """(dt, view_proj, eye, lights, track, breath) of a still pose."""
+    from reze_tpu_torch.anim import sampler
+
+    cam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
+                 aspect=cfg.width / cfg.height)
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    base = torch.zeros((j, 4), device=d)
+    base[:, 3] = 1.0
+    breath = {"mask": torch.zeros(j, dtype=torch.bool, device=d),
+              "ranges": torch.zeros(j, device=d), "base": base,
+              "half_cycle": torch.tensor(2.0, device=d),
+              "start": torch.tensor(float("inf"), device=d)}
+    return (torch.tensor(1 / 60, device=d), cam.view_proj(d), cam.position(d),
+            pipeline.make_lights(cfg, d), sampler.empty_animation(j, nm, d), breath)
+
+
+def _path_cfg(name, **kw):
+    """The path's EngineConfig: physics off but on the default path."""
+    return EngineConfig(**{"enable_physics": False, **kw, **PATHS[name]})
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_step_on_gpu_matches_cpu(dev, name):
+    cfg = _path_cfg(name, width=256, height=128)
+    frames, states = {}, {}
     for d in ("cpu", dev):
         # the texture of tests/test_torch_step.py: two texel columns keep
         # the quads' u seam (coplanar depth ties) out of the comparison
         model = ptesting.make_test_model(tex_hw=(16, 2), device=d)
-        j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
-        from reze_tpu_torch.anim import sampler
-
-        base = torch.zeros((j, 4), device=d)
-        base[:, 3] = 1.0
-        breath = {"mask": torch.zeros(j, dtype=torch.bool, device=d),
-                  "ranges": torch.zeros(j, device=d), "base": base,
-                  "half_cycle": torch.tensor(2.0, device=d),
-                  "start": torch.tensor(float("inf"), device=d)}
-        step = make_step(model, cfg)
-        state, frame = step(init_scene_state(model), torch.tensor(1 / 60, device=d),
-                            cam.view_proj(d), cam.position(d), pipeline.make_lights(cfg, d),
-                            sampler.empty_animation(j, nm, d), breath)
-        frames[str(d)] = frame.cpu().numpy()
+        args = _step_args(model, cfg, d)
+        state, frame = make_step(model, cfg)(init_scene_state(model), *args)
+        state, frame = make_step(model, cfg)(state, *args)
+        frames[str(d)], states[str(d)] = frame.cpu().numpy(), state
         assert state.diag.pair_overflow.item() == 0
     diff = np.abs(frames["cpu"] - frames[str(dev)]).max(-1)
     assert (diff <= 1 / 255).mean() >= 0.99
+    pc, pg = states["cpu"].physics, states[str(dev)].physics
+    assert states["cpu"].diag.contact_overflow.item() == \
+        states[str(dev)].diag.contact_overflow.item()
+    assert pc.time_accum.item() == pg.time_accum.item()
+    for a, b in ((pc.position, pg.position), (pc.quat, pg.quat)):
+        assert (a - b.cpu()).abs().max().item() <= SCENE_TOL
+
+
+@pytest.mark.parametrize("name", sorted(PATHS))
+def test_step_makes_no_synchronising_copy(dev, name):
+    """One 1080p step of each path under ``torch.cuda.set_sync_debug_mode``
+    (after a first step, which fills the per-device constants): the
+    physics-off paths wait for the stream nowhere, the default path once,
+    where the solver reads its substep count."""
+    cfg = _path_cfg(name, width=1920, height=1080)
+    model = ptesting.make_test_model(device=dev)
+    step = make_step(model, cfg)
+    args = _step_args(model, cfg, dev)
+    state, _ = step(init_scene_state(model), *args)
+    torch.cuda.set_sync_debug_mode("warn")  # its first call may itself warn
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, frame = step(state, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == (1 if name == "default" else 0), syncs
+    assert bool(torch.isfinite(frame).all())
+
+
+RIG_TOL = 1e-3
+SCENE_TOL = 1e-4
+
+
+def _contact_scene(d):
+    """A dynamic sphere dropped onto a kinematic capsule rail along x,
+    sliding with friction and bouncing with restitution, beside a pendulum
+    on a spring joint -> (PhysicsModel, wq, wp) on ``d``."""
+    n = 4
+    q0 = np.tile(np.array([0, 0, 0, 1], np.float32), (n, 1))
+    rail = np.array([0.0, 0.0, np.sin(np.pi / 4), np.cos(np.pi / 4)], np.float32)
+    pm = PT_PhysicsModel(
+        bone_index=np.arange(n, dtype=np.int32), shape=np.array([2, 0, 0, 0], np.int32),
+        size=np.array([[1.0, 40.0, 1.0], [0.5, 0, 0], [0.3, 0, 0], [0.4, 0, 0]], np.float32),
+        mass=np.array([0, 1, 0, 1], np.float32), inv_mass=np.array([0, 1, 0, 1], np.float32),
+        inv_inertia_local=np.full((n, 3), 10.0, np.float32),
+        linear_damping=np.full(n, 0.1, np.float32), angular_damping=np.full(n, 0.1, np.float32),
+        restitution=np.array([1.0, 0.6, 0, 0], np.float32),
+        friction=np.array([1.0, 0.05, 0.5, 0.5], np.float32),
+        is_dynamic=np.array([False, True, False, True]), no_contact=np.zeros(n, bool),
+        group=np.zeros(n, np.int32), collision_mask=np.full(n, 0xFFFF, np.int32),
+        body_offset_pos=np.zeros((n, 3), np.float32),
+        body_offset_quat=np.stack([rail, q0[1], q0[2], q0[3]]),
+        bind_pos=np.zeros((n, 3), np.float32), valid=np.ones(n, bool),
+        joint_body_a=np.array([2], np.int32), joint_body_b=np.array([3], np.int32),
+        joint_pos_a=np.array([[0, -1, 0]], np.float32), joint_quat_a=q0[:1],
+        joint_pos_b=np.array([[0, 1, 0]], np.float32), joint_quat_b=q0[:1],
+        joint_lin_min=np.zeros((1, 3), np.float32), joint_lin_max=np.zeros((1, 3), np.float32),
+        joint_ang_min=np.full((1, 3), -1.0, np.float32),
+        joint_ang_max=np.full((1, 3), 1.0, np.float32),
+        joint_spring_lin=np.zeros((1, 3), np.float32),
+        joint_spring_ang=np.full((1, 3), 5.0, np.float32),
+        joint_valid=np.ones(1, bool), n_bodies=n, n_joints=1)
+    wp = np.array([[0, 0, 0], [0, 3.5, 0], [6, 10, 0], [7, 8.5, 0]], np.float32)
+    return (bridge.from_jax_arrays(pm, d), torch.as_tensor(q0, device=d),
+            torch.as_tensor(wp, device=d))
+
+
+@pytest.mark.parametrize("scene,frames,tol", [("rig", 10, RIG_TOL), ("contact", 60, SCENE_TOL)])
+def test_solver_on_gpu_matches_cpu(dev, scene, frames, tol):
+    traj = {}
+    for d in ("cpu", dev):
+        pm, wq, wp = (ptesting.make_physics_rig(0, device=d) if scene == "rig"
+                      else _contact_scene(d))
+        plan = solver.prepare(EngineConfig(), pm)
+        st = init_physics_state(pm.bone_index.shape[0], d)
+        out = []
+        for f in range(frames):
+            if f == 1 and scene == "contact":  # the sphere slides along the rail
+                st = dataclasses.replace(st, lin_vel=st.lin_vel + torch.tensor(
+                    [[0, 0, 0], [4.0, 0, 0], [0, 0, 0], [0, 0, 0]], device=d))
+            bq, bp, st, ovf = solver.step(plan, st, torch.tensor(1 / 60, device=d), wq, wp)
+            out.append((st.position.cpu(), st.quat.cpu(), bp.cpu(), ovf.item(),
+                        st.time_accum.item()))
+        traj[str(d)] = out
+    for (pc, qc, bc, oc, ac), (pg, qg, bg, og, ag) in zip(traj["cpu"], traj[str(dev)]):
+        assert (oc, ac) == (og, ag)
+        for a, b in ((pc, pg), (qc, qg), (bc, bg)):
+            assert torch.isfinite(b).all() and (a - b).abs().max().item() <= tol
+    moved = (traj[str(dev)][-1][0] - traj[str(dev)][0][0]).abs().max().item()
+    assert moved > 0.1

@@ -3,7 +3,7 @@ with ``use_megakernel=False`` (layered: seven raster passes, the two-layer
 stack, the stack shade and the composite) and with
 ``layered_shading=False`` (per-pass shading and blending, channel-last
 bloom) against JAX ``make_step(renderer="tpu")`` (the Pallas kernels in
-interpret mode) on the synthetic model at 128x64, physics off, for three
+interpret mode) on the synthetic model at 128x64, physics on, for three
 frames; the second frame sets a morph weight and starts a bone tween. Also
 the plain torch modules of the non-layered branch, ``shading_fast`` and
 the channel-last bloom of ``post``, on seeded inputs.

@@ -259,3 +259,19 @@ def test_skinning_matches(jmodel, pmodel, sdef):
         morphs=pmodel.morphs, morph_weights=tt(mw), world_quat_palette=tt(jq))
     close(ppos, jpos)
     close(pnrm, jnrm)
+
+
+def test_shared_constant_refuses_a_write():
+    """``math3d.const`` hands every caller one tensor per (values, dtype,
+    device); after an in-place write to it the next request raises rather
+    than hand out the changed values."""
+    values = (0.25, 0.5)
+    c = pm3.const(values, torch.float32, "cpu")
+    assert pm3.const(values, torch.float32, "cpu") is c
+    assert torch.equal(c, torch.tensor(values))
+    c.add_(1.0)
+    with pytest.raises(RuntimeError, match="written in place"):
+        pm3.const(values, torch.float32, "cpu")
+    c.sub_(1.0)  # a second write does not make it trusted again
+    with pytest.raises(RuntimeError, match="written in place"):
+        pm3.const(values, torch.float32, "cpu")

@@ -1,11 +1,12 @@
 """The port's whole step against the JAX package's ``make_step`` with
 ``renderer="tpu"`` (the Pallas kernels in interpret mode: the path the
-engine runs, not the XLA oracle) on the synthetic model at 128x64, physics
-off, for three frames; the second frame sets a morph weight and starts a
-bone tween.
+engine runs, not the XLA oracle) on the synthetic model at 128x64 with the
+default ``enable_physics=True`` (two bodies, one spring joint), for three
+frames; the second frame sets a morph weight and starts a bone tween.
 
-Bounds: frames within 1/255 on >= 99 % of pixels; ``time`` and
-``pair_overflow`` exact.
+Bounds: frames within 1/255 on >= 99 % of pixels; ``time``,
+``pair_overflow``, ``contact_overflow``, the physics accumulator and its
+``initialized`` flag exact; body positions and quaternions within 1e-5.
 
 The model's texture is 16x2 texels. Its quads map u to 0 along each quad's
 diagonal from both sides, and a pixel on that seam takes its texel from
@@ -67,8 +68,8 @@ def run_frames(**cfg_kw):
     The second frame sets a morph weight and starts a bone tween."""
     jmodel = jtesting.make_test_model(tex_hw=TEX_HW)
     pmodel = ptesting.make_test_model(tex_hw=TEX_HW, device="cpu")
-    jcfg = JT.EngineConfig(width=W, height=H, enable_physics=False, renderer="tpu", **cfg_kw)
-    pcfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **cfg_kw)
+    jcfg = JT.EngineConfig(width=W, height=H, renderer="tpu", **cfg_kw)
+    pcfg = PT.EngineConfig(width=W, height=H, **cfg_kw)
     cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
                       aspect=W / H)
     vp, eye = np.array(cam.view_proj()), np.array(cam.position())
@@ -188,16 +189,23 @@ def test_step_state_matches(runs, f):
     np.testing.assert_allclose(ps.local_rot.numpy(), js.local_rot, atol=1e-5)
     np.testing.assert_array_equal(ps.morph_weights.numpy(), js.morph_weights)
     np.testing.assert_array_equal(ps.tween.active.numpy(), js.tween.active)
+    assert ps.diag.contact_overflow.item() == int(js.diag.contact_overflow)
+    jp, pp = js.physics, ps.physics
+    assert pp.time_accum.item() == float(jp.time_accum)
+    assert pp.initialized.item() and bool(jp.initialized)
+    np.testing.assert_allclose(pp.position.numpy(), jp.position, atol=1e-5)
+    np.testing.assert_allclose(pp.quat.numpy(), jp.quat, atol=1e-5)
+
+
+def test_physics_moves_the_dynamic_body(runs):
+    """The stop-ERP slack lets the dynamic body sag from its bone's pose
+    (bone 2 at y = 2) while its spring joint holds it."""
+    pos = runs[-1]["pstate"].physics.position
+    assert 1e-3 < 2.0 - pos[1, 1].item() < 0.1
 
 
 def test_morph_and_tween_change_the_frame(runs):
     assert np.abs(runs[1]["pframe"] - runs[0]["pframe"]).max() > 0.1
-
-
-def test_physics_refused():
-    model = ptesting.make_test_model(device="cpu")
-    with pytest.raises(NotImplementedError, match="physics"):
-        pmake_step(model, PT.EngineConfig(width=W, height=H))
 
 
 @pytest.mark.parametrize("change", [
