@@ -22,7 +22,10 @@ Phases, each printed on its own line:
    (hundreds of pairs per tile and pass) in both coverage modes, the raster
    pass on a 256x1024 crop of a dense raster table set (its seven passes
    chained) and the stack shade on a whole stack with both layers present
-   in every tile;
+   in every tile; (3c) the crowd's batched kernels (frame, stream, stack
+   shade, composite: one launch over three characters of seeded random
+   tables, a seed each) against their crowd twins, and again in phase 4c
+   on the crowd's own inputs;
 4. the seven paths of ``make_step`` at 1920x1080 on the synthetic model
    with the camera close enough that its quads span the frame height, 5
    frames each: six with physics off, the main path (the default
@@ -38,6 +41,15 @@ Phases, each printed on its own line:
    (``testing.make_physics_rig``) at dt = 1/60 s for 120 frames on the
    card and on the CPU, and on the CPU again from a start 1 ulp away, the
    trajectories held together (bounds at ``RIG_*``);
+   (4c) the crowd: ``distrib.make_batched_step`` on CROWD_C characters of
+   the synthetic model at CROWD_SIZE x CROWD_SIZE with the default
+   ``EngineConfig`` (physics on), each with its own camera, clip start
+   and accumulator, on the "group" and "stream" routes and "group" in
+   chunks: finite frames, the covered fraction of every character, no pair
+   overflow, the batched kernels' launches (counts set to 0 just before
+   each route and read just after), each character's frame within
+   CROWD_TOL of the single step from its own state (also in a crowd of
+   CROWD_ODD on both routes), chunked frames equal to unchunked ones;
 5. timing: milliseconds per frame of each path (host clock over
    state-carrying steps, the seven paths twice in turns in one call), and
    each kernel's device time (torch.profiler's records of its launches)
@@ -46,7 +58,12 @@ Phases, each printed on its own line:
    three input sets at the main path's shape: its own inputs, empty ones
    and the dense set (the raster pass per launch over its seven chained
    passes), each with its bound and the share of the bound, and the time
-   of the whole call (CUDA events, host work included);
+   of the whole call (CUDA events, host work included); (5c) the crowd:
+   char-frames/s at each of CROWD_SIZES on both routes (host clock), and
+   launches and device busy ms per crowd frame (torch.profiler), which
+   must not grow more than 1.5x from one character to the largest crowd;
+   each batched kernel's device time per launch on the crowd's inputs
+   beside its twin's and its bound;
 6. each path's step at 256x128 on the GPU against the step on the CPU
    (where the kernels' twins run);
 7. only with ``--profile``: each path's 1080p step under ``torch.profiler``
@@ -55,7 +72,9 @@ Phases, each printed on its own line:
 8. the rig's cost: ms per frame by the host clock, and under
    torch.profiler device ms and kernel launches per frame and per
    substep. Last, because its profiles hold tens of thousands of launches
-   a frame.
+   a frame; (8b) the solver on RIG_CROWD copies of the rig at once, each
+   copy within RIG_EARLY_TOL of the copy run alone over RIG_EARLY frames,
+   with its ms, device ms and launches per frame beside the single rig's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -78,7 +97,7 @@ N_TIMED = 20
 # is held to the CPU's within RIG_EARLY_TOL (positions and quaternions)
 # over the first RIG_EARLY frames, with the same contact overflow there.
 # The card and the CPU round differently (reduction order, library
-# functions; the card's index_add_ adds in no fixed order) and the
+# functions; the card's scatter_add_ adds in no fixed order) and the
 # swinging chains amplify last-bit differences: a witness, the CPU run
 # again from a start 1 ulp away, parts from the CPU run as fast. So over
 # all RIG_FRAMES the card is held to the rig's physics instead: its
@@ -91,6 +110,25 @@ RIG_EARLY_TOL = 1e-3
 RIG_SPREAD = 2.0
 # frames timed per turn and profiled (phase 8)
 RIG_TIMED = 8
+# the crowd (phases 3c, 4c, 5c): CROWD_C characters of the synthetic model
+# at CROWD_SIZE x CROWD_SIZE with the default EngineConfig, clip starts
+# CROWD_STAGGER s apart, CROWD_FRAMES counted frames per route, "group"
+# also in chunks of CROWD_CHUNK; char-frames/s at each of CROWD_SIZES over
+# CROWD_TIMED frames; within CROWD_TOL of each character's single step
+CROWD_C = 32
+CROWD_SIZE = 256
+CROWD_STAGGER = 0.35
+CROWD_FRAMES = 3
+CROWD_CHUNK = 8
+CROWD_SIZES = (1, 8, 32)
+CROWD_TIMED = 20
+CROWD_TOL = 1e-5
+# a crowd size that is not a power of two, also held to its single steps
+CROWD_ODD = 3
+# the batched solver (phase 8b): RIG_CROWD copies of the rig, copy c's
+# bones moved c * RIG_NUDGE along x
+RIG_CROWD = 8
+RIG_NUDGE = 1e-3
 W, H = 1920, 1080
 # the dense table set (phases 3e, 5b): seeded random triangles per pass,
 # each spanning a fixed share of the frame, so at 1088x1920 the pairs of a
@@ -191,6 +229,396 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# bounds from a run's inputs: the bytes each function must move (each input
+# value it needs read once, each output written once) and the operations
+# these inputs need, counted from the pairs the tables hold; a crowd's
+# tables, stacks and outputs count every character
+
+
+def frame_bound(tabs, shade_tables, out, n_samples: int) -> tuple[float, str]:
+    """The frame kernel's: every pair's row, the per-tile starts and counts
+    and the shade tables in, the 18 planes out; per pair the walk of its
+    tile's pixels, the shade of each layer's pixels that hold a fragment
+    (an empty layer's output is fixed)."""
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    pairs = int(tabs.counts.sum())  # one row per pair
+    walk = PLANE_OPS + SAMPLE_OPS * n_samples
+    shaded = (int((out[..., SG.O_AEFF, :, :] > 0).sum())
+              + int((out[..., SG.O_CH + SG.O_AEFF, :, :] > 0).sum()))
+    return bound(pairs * FG.ROW_W * 4 + nbytes(tabs.starts, tabs.counts, *shade_tables[1:4], out),
+                 pairs * FG.TILE_H * FG.TILE_W * walk + shaded * SHADE_OPS)
+
+
+def present_tiles(stk) -> list[int]:
+    """Per layer, the 32x128 tiles where it has a fragment."""
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    hp, wp = stk.shape[-2:]
+    return [int((stk[..., layer * SG.L_CH + SG.L_AEFF, :, :] > 0).reshape(
+        -1, hp // SG.STACK_TILE_H, SG.STACK_TILE_H, wp // SG.STACK_TILE_W,
+        SG.STACK_TILE_W).any(4).any(2).sum()) for layer in range(2)]
+
+
+def shade_bound(stk, shade_tables, out) -> tuple[float, str]:
+    """The stack shade's: a_eff of both layers everywhere, a layer's other
+    channels only in the 32x128 tiles where it is present (elsewhere its
+    output is fixed), the shade tables, all 18 output planes; the shade's
+    operations on the present tiles' pixels."""
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    tile_px, n_present = SG.STACK_TILE_H * SG.STACK_TILE_W, sum(present_tiles(stk))
+    plane = stk.numel() // (2 * SG.L_CH)  # pixels
+    return bound(2 * plane * 4 + n_present * tile_px * (SG.L_CH - 1) * 4
+                 + nbytes(*shade_tables[1:4], out), n_present * tile_px * SHADE_OPS)
+
+
+def stream_bound(st, raw, n_samples: int) -> tuple[float, str]:
+    """The stream kernel's: its live rows and bounds in, the 147-channel
+    raw state out; per row the walk of its tile's pixels."""
+    from reze_tpu_torch.kernels import frame_gpu as FG
+
+    pairs = int(st.bounds[..., 7, :].amax(-1).sum())  # live rows
+    return bound(pairs * FG.ROW_W * 4 + nbytes(st.bounds, raw),
+                 pairs * FG.TILE_H * FG.TILE_W * (PLANE_OPS + SAMPLE_OPS * n_samples))
+
+
+def composite_bound(o, atlas, img, seed, half_layers: int) -> tuple[float, str]:
+    """The composite's: the 18 shade planes in, but a half-res layer's
+    footprint planes (O_DXDY, O_FX, O_FY) on even rows only (its even
+    columns share those rows' memory sectors); the atlas; image and bloom
+    seed out."""
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    p = o.numel() // (2 * SG.O_CH)
+    return bound((2 * SG.O_CH - 1.5 * half_layers) * p * 4 + nbytes(atlas, img, seed),
+                 p * COMPOSITE_OPS)
+
+
+def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat) -> None:
+    """Phase 3c: each batched kernel, one launch over three characters of
+    seeded random tables (a seed each, the CPU tests' shapes), against its
+    crowd twin through ``check(kernel, label, got, want)``."""
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_stream as FS
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    seeds = (11, 12, 13)
+    sh = [testing.random_shade_inputs(s) for s in seeds]
+    eyes = torch.as_tensor(np.stack([x["eye_pos"] for x in sh]), device=dev)
+    ivps = torch.as_tensor(np.stack([x["inv_vp"] for x in sh]), device=dev)
+    shade = (shade_tables, lights, 0.45, eyes, ivps)
+
+    def frame_tables(hp):
+        return testing.stack_tables([testing.random_frame_tables(s, (400,) * 7, hp, 256,
+                                                                 device=dev) for s in seeds])
+
+    ft = frame_tables(16)
+    for name, analytic, mips in (("msaa_mips", False, True), ("analytic_nomips", True, False)):
+        kw = dict(hp=16, wp=256, n_samples=4, use_mips=mips, lod_bias=(1.0, 0.0),
+                  analytic=analytic)
+        check("frame_crowd", f"random_3x16x256_{name}",
+              FG.render_megakernel_crowd(ft, *shade, **kw),
+              FG.render_megakernel_crowd_twin(ft, *shade, **kw))
+    st = testing.stack_tables([testing.random_stream_tables(s, (400,) * 7, 16, 256, device=dev)
+                               for s in seeds])
+    kw = dict(hp=16, wp=256, n_samples=4)
+    check("stream_crowd", "random_3x16x256", FS.render_megakernel_stream_crowd(st, **kw),
+          FS.render_megakernel_stream_crowd_twin(st, **kw))
+    stack = torch.stack([testing.random_stack(s, 64, 256, empty_tiles=((0, 0),), device=dev)
+                         for s in seeds])
+    for mips in (True, False):
+        kw = dict(use_mips=mips, lod_bias=(1.0, 0.0))
+        check("shade_stack_crowd", f"random_3x64x256_mips{int(mips)}",
+              SG.shade_stack_crowd(stack, *shade, **kw),
+              SG.shade_stack_crowd_twin(stack, *shade, **kw))
+    o = FG.render_megakernel_crowd(frame_tables(32), *shade, hp=32, wp=256, n_samples=4,
+                                   use_mips=True)
+    kw = dict(half0=True, half1=True, with_bloom=True)
+    check("composite_crowd", "random_3x32x256", CG.composite_crowd(o, mip_flat, **kw),
+          CG.composite_crowd_twin(o, mip_flat, **kw))
+
+
+def crowd_inputs(model, cfg, n: int, dev, track, breath):
+    """``n`` characters of ``model``, each with its own camera and clip
+    start -> (states, (dt, view_projs, eyes, lights, track, breath))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import distrib
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.render import pipeline
+
+    cams = [Camera(alpha=0.03 * (c - n / 2), beta=np.pi / 2, radius=3.0 + 0.01 * c,
+                   target=(0.0, 1.9, 0.0), aspect=cfg.width / cfg.height) for c in range(n)]
+    states = distrib.batch_state(model, n)
+    ar = torch.arange(n, dtype=torch.float32, device=dev)
+    # staggered clips, and accumulators that run different substep counts
+    states = dataclasses.replace(
+        states, playing=torch.ones(n, dtype=torch.bool, device=dev),
+        play_t0=-CROWD_STAGGER * ar, physics=dataclasses.replace(
+            states.physics, time_accum=0.004 * torch.remainder(ar, 3.0)))
+    return states, (torch.tensor(1 / 60, device=dev),
+                    torch.stack([cam.view_proj(dev) for cam in cams]),
+                    torch.stack([cam.position(dev) for cam in cams]),
+                    pipeline.make_lights(cfg, dev), track, breath)
+
+
+def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
+    """Phase 4c: the crowd through ``distrib.make_batched_step`` on each
+    route, counts set to 0 just before it and read just after; then each
+    batched kernel against its twin (``check``) on the crowd's own inputs.
+    -> the launches per crowd frame of each route and the crowd's inputs
+    to each kernel."""
+    import dataclasses
+
+    import torch
+
+    from reze_tpu_torch import distrib, testing
+    from reze_tpu_torch.core import math3d as m3
+    from reze_tpu_torch.core.types import EngineConfig
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_stream as FS
+    from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.render import pipeline_gpu
+    from reze_tpu_torch.step import make_step
+
+    cfg = EngineConfig(width=CROWD_SIZE, height=CROWD_SIZE)
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    track = testing.make_test_track(1, j, nm, device=dev)
+    routes = {"group": (cfg, None), "stream": (dataclasses.replace(cfg, rasterizer="stream"), None),
+              "group_chunked": (cfg, CROWD_CHUNK)}
+    per_launch = {"group": {"frame_crowd": 1, "composite_crowd": 1},
+                  "stream": {"stream_crowd": 1, "shade_stack_crowd": 1, "composite_crowd": 1},
+                  "group_chunked": {"frame_crowd": CROWD_C // CROWD_CHUNK,
+                                    "composite_crowd": CROWD_C // CROWD_CHUNK}}
+    launches, runs = {}, {}
+    for name, (rcfg, chunk) in routes.items():
+        step = distrib.make_batched_step(model, rcfg, crowd_chunk=chunk)
+        states, args = crowd_inputs(model, rcfg, CROWD_C, dev, track, breath)
+        frames, before = [], None
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CROWD_FRAMES):
+            before = states
+            states, fr = step(states, *args)
+            frames.append(fr)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        runs[name] = (before, states, frames, args)
+        covered = torch.stack([(fr.sum(-1) > 0.01).float().mean((1, 2)) for fr in frames])
+        ovf = torch.stack([states.diag.pair_overflow])
+        phase("crowd", route=name, chars=CROWD_C, size=CROWD_SIZE, frames=CROWD_FRAMES,
+              chunk=chunk, covered_min_max=[round(covered.min().item(), 4),
+                                           round(covered.max().item(), 4)],
+              pair_overflow_max=int(ovf.max()), contact_overflow_max=int(
+                  states.diag.contact_overflow.max()),
+              substep_accum=[round(v, 5) for v in states.physics.time_accum[:4].tolist()],
+              launches=launches[name], seconds=f"{seconds:.3f}")
+        require(all(tuple(fr.shape) == (CROWD_C, CROWD_SIZE, CROWD_SIZE, 3) for fr in frames),
+                (name, "crowd frame shape"))
+        require(all(bool(torch.isfinite(fr).all()) for fr in frames), (name, "crowd finite"))
+        require(covered.min().item() > 0.05, (name, "crowd covered fraction", covered.tolist()))
+        require(int(ovf.max()) == 0, (name, "crowd pair overflow"))
+        want = {k: per_launch[name].get(k, 0) * CROWD_FRAMES for k in counters}
+        require(launches[name] == want, (name, "crowd launches", launches[name], want))
+    # the staggered clips pose the characters apart
+    last = runs["group"][2][-1]
+    require((last[0] - last[CROWD_C // 2]).abs().max().item() > 0.05, "crowd characters differ")
+    def against_single(name, before, frame, args):
+        """Each character's crowd frame against the single step from its
+        own state before that frame."""
+        dt, vps, eyes, lights = args[:4]
+        single = make_step(model, routes[name][0])
+        err = 0.0
+        for c in range(frame.shape[0]):
+            _, f1 = single(distrib._map(lambda x: x[c], before), dt, vps[c], eyes[c], lights,
+                           track, breath)
+            err = max(err, (f1 - frame[c]).abs().max().item())
+        phase("crowd_check", route=name, chars=frame.shape[0],
+              against="single_step_per_character", max_abs_err=err)
+        require(err <= CROWD_TOL, (name, frame.shape[0], "crowd against the single step", err))
+
+    # every character against the single step from its own state, in the
+    # full crowd and in one of CROWD_ODD
+    for name in ("group", "stream"):
+        before, _, frames, args = runs[name]
+        against_single(name, before, frames[-1], args)
+        step = distrib.make_batched_step(model, routes[name][0])
+        states, args = crowd_inputs(model, routes[name][0], CROWD_ODD, dev, track, breath)
+        for _ in range(CROWD_FRAMES):
+            before = states
+            states, fr = step(states, *args)
+        against_single(name, before, fr, args)
+    same = all(torch.equal(a, b) for a, b in zip(runs["group"][2], runs["group_chunked"][2]))
+    phase("crowd_check", route="group_chunked", against="group", equal=same)
+    require(same, "chunked crowd frames differ from the unchunked")
+
+    # each batched kernel on the crowd's own inputs (the group route's state
+    # before its last frame)
+    before, _, _, (dt, vps, eyes, lights, _, _) = runs["group"]
+    sim = make_step(model, cfg).simulate(before, dt, track, breath)
+    pos, nrm, uvs = sim[7], sim[8], sim[9]
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    tables = SG.pack_shade_tables(model.materials, model.atlas)
+    use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model)
+    ivps = m3.mat4_inverse(vps).contiguous()
+    shade = (tables, lights, cfg.rim_light_intensity, eyes, ivps)
+    skw = dict(use_mips=use_mips, lod_bias=lod_bias)
+    fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, **skw)
+    mkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples)
+    ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
+               with_bloom=cfg.enable_bloom)
+    atlas = model.atlas.mip_flat.contiguous()
+    ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, pos, nrm, vps, uvs)
+    st = pipeline_gpu._build_stream_tables(model, cfg, dims, tables, pos, nrm, vps, uvs)
+    o = FG.render_megakernel_crowd(ft, *shade, **fkw)
+    check("frame_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", o,
+          FG.render_megakernel_crowd_twin(ft, *shade, **fkw))
+    raw = FS.render_megakernel_stream_crowd(st, **mkw)
+    check("stream_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", raw,
+          FS.render_megakernel_stream_crowd_twin(st, **mkw))
+    stack = FS.compose_stream_state(raw, cfg.msaa_samples)
+    s_k = SG.shade_stack_crowd(stack, *shade, **skw)
+    check("shade_stack_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", s_k,
+          SG.shade_stack_crowd_twin(stack, *shade, **skw))
+    check("composite_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", CG.composite_crowd(o, atlas, **ckw),
+          CG.composite_crowd_twin(o, atlas, **ckw))
+    half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
+    img, seed = CG.composite_crowd(o, atlas, **ckw)
+    return {"launches": {k: launches[r][k] // CROWD_FRAMES
+                         for r, k in (("group", "frame_crowd"), ("group", "composite_crowd"),
+                                      ("stream", "stream_crowd"),
+                                      ("stream", "shade_stack_crowd"))},
+            "cfg": cfg, "track": track,
+            "calls": {
+                "frame_crowd": (lambda: FG.render_megakernel_crowd(ft, *shade, **fkw),
+                                lambda: FG.render_megakernel_crowd_twin(ft, *shade, **fkw),
+                                "frame_kernel", frame_bound(ft, tables, o, cfg.msaa_samples)),
+                "stream_crowd": (lambda: FS.render_megakernel_stream_crowd(st, **mkw),
+                                 lambda: FS.render_megakernel_stream_crowd_twin(st, **mkw),
+                                 "stream_kernel", stream_bound(st, raw, cfg.msaa_samples)),
+                "shade_stack_crowd": (lambda: SG.shade_stack_crowd(stack, *shade, **skw),
+                                      lambda: SG.shade_stack_crowd_twin(stack, *shade, **skw),
+                                      "shade_stack_kernel", shade_bound(stack, tables, s_k)),
+                "composite_crowd": (lambda: CG.composite_crowd(o, atlas, **ckw),
+                                    lambda: CG.composite_crowd_twin(o, atlas, **ckw),
+                                    "composite_kernel",
+                                    composite_bound(o, atlas, img, seed, half_layers))}}
+
+
+def crowd_timing(dev, smi: str, model, breath, crowd: dict) -> dict:
+    """Phase 5c: char-frames/s of the crowd step at each of CROWD_SIZES on
+    both routes (host clock over CROWD_TIMED state-carrying steps ending
+    in a synchronize), launches and device busy ms per crowd frame under
+    torch.profiler, and each batched kernel's median device ms per launch
+    on the crowd's own inputs beside its twin's (CUDA events) and its bound.
+    -> {kernel: (ms, twin ms)}."""
+    import dataclasses
+
+    import torch
+
+    from reze_tpu_torch import distrib
+
+    cfg = crowd["cfg"]
+    for route, rcfg in (("group", cfg), ("stream", dataclasses.replace(cfg, rasterizer="stream"))):
+        step = distrib.make_batched_step(model, rcfg)
+        fields, prof = {}, {}
+        for n in CROWD_SIZES:
+            states, args = crowd_inputs(model, rcfg, n, dev, crowd["track"], breath)
+            for _ in range(2):
+                states, _ = step(states, *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CROWD_TIMED):
+                states, _ = step(states, *args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / CROWD_TIMED * 1e3
+            prof[n] = profile_step(step, states, args, 2)
+            # the share of the unprofiled frame (the profiler slows the host)
+            fields[f"C{n}"] = {"char_frames_per_s": round(n / ms * 1e3, 3),
+                               "ms_per_frame": round(ms, 3),
+                               "launches_per_frame": prof[n]["launch_calls"],
+                               "device_busy_ms": prof[n]["device_busy_ms"],
+                               "device_busy_share": round(prof[n]["device_busy_ms"] / ms, 4)}
+        ratio = prof[CROWD_SIZES[-1]]["launch_calls"] / prof[CROWD_SIZES[0]]["launch_calls"]
+        phase("crowd_timing", route=route, card=smi, launch_ratio=round(ratio, 3),
+              **{k: json.dumps(v) for k, v in fields.items()})
+        require(ratio <= 1.5, (route, "launches per crowd frame grow with the crowd", ratio))
+    times = {}
+    for name, (kern, twin, kname, b) in crowd["calls"].items():
+        times[name] = (kernel_ms(kern, N_TIMED, kname), cuda_ms(twin, 1))
+        phase("crowd_timing", kernel=name, card=smi, chars=CROWD_C, ms=f"{times[name][0]:.4f}",
+              twin_ms=f"{times[name][1]:.3f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
+              share=f"{b[0] / times[name][0]:.3f}")
+    return times
+
+
+def rig_crowd_phase(dev, smi: str, pm, wq, wp, plan, single: dict) -> None:
+    """Phase 8b: ``solver.step`` on RIG_CROWD copies of the rig at once,
+    copy c's bones moved c * RIG_NUDGE along x; each copy's trajectory held
+    within RIG_EARLY_TOL of the copy run alone over RIG_EARLY frames; ms
+    (host clock, two turns), device ms and launches per frame beside the
+    single rig's (``single``: phase 8's figures)."""
+    import torch
+
+    from reze_tpu_torch import distrib
+    from reze_tpu_torch.core.types import init_physics_state
+    from reze_tpu_torch.physics import solver
+
+    n, nb = RIG_CROWD, pm.bone_index.shape[0]
+    dt = torch.tensor(1 / 60, device=dev)
+    wqs = wq.expand((n,) + wq.shape).contiguous()
+    nudge = torch.zeros((n, 1, 3), device=dev)
+    nudge[:, 0, 0] = RIG_NUDGE * torch.arange(n, device=dev)
+    wps = wp + nudge
+    box = [distrib._map(lambda x: x.expand((n,) + x.shape).clone(),
+                        init_physics_state(nb, dev))]
+    traj = []
+    for _ in range(RIG_EARLY):
+        _, _, box[0], _ = solver.step(plan, box[0], dt, wqs, wps)
+        traj.append((box[0].position, box[0].quat))
+    err = 0.0
+    for c in range(n):
+        st = init_physics_state(nb, dev)
+        for f in range(RIG_EARLY):
+            _, _, st, _ = solver.step(plan, st, dt, wq, wps[c])
+            err = max(err, (st.position - traj[f][0][c]).abs().max().item(),
+                      (st.quat - traj[f][1][c]).abs().max().item())
+    phase("physics_crowd", copies=n, frames=RIG_EARLY, err_against_alone=f"{err:.3g}")
+    require(err <= RIG_EARLY_TOL, ("batched rig against each copy alone", err))
+
+    def frames(k):
+        for _ in range(k):
+            _, _, box[0], _ = solver.step(plan, box[0], dt, wqs, wps)
+
+    ms = []
+    for _ in range(2):
+        frames(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames(RIG_TIMED)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / RIG_TIMED * 1e3)
+    prof = profile_calls(lambda: frames(1), 3)
+    phase("physics_crowd", card=smi, copies=n, ms_per_frame="/".join(f"{x:.3f}" for x in ms),
+          device_ms_per_frame=prof["device_busy_ms"], launches_per_frame=prof["launch_calls"],
+          single_ms_per_frame=single["ms"], single_device_ms_per_frame=single["device_ms"],
+          single_launches_per_frame=single["launches"])
 
 
 def main() -> int:
@@ -348,7 +776,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         check_exact("shade_stack", f"random_64x256_mips{int(mips)}",
                     SG.shade_stack(*sa, **skw), SG.shade_stack_twin(*sa, **skw))
 
-    # 3c. the hybrid, mxu and stream kernels against their twins on the
+    # 3b'. the hybrid, mxu and stream kernels against their twins on the
     # same seeded tables
     for name, analytic, mips, n in (("msaa_mips", False, True, 4),
                                     ("analytic_nomips", True, False, 1)):
@@ -366,6 +794,26 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         check_exact("stream", f"random_16x256_s{n}",
                     FS.render_megakernel_stream(rst, hp=16, wp=256, n_samples=n),
                     FS.render_megakernel_stream_twin(rst, hp=16, wp=256, n_samples=n))
+
+    # 3c. the crowd's batched kernels against their crowd twins: frame,
+    # stream and stack shade bit for bit, the composite within 1e-6; here
+    # on seeded random tables, in phase 4c on the crowd's own inputs
+    crowd_err = {k: 0.0 for k in ("frame_crowd", "stream_crowd", "shade_stack_crowd",
+                                  "composite_crowd")}
+
+    def check_crowd(kernel, label, got, want):
+        if kernel == "composite_crowd":  # (images, bloom seeds)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            phase("check", kernel=kernel, tables=label, chars=got[0].shape[0], max_abs_err=err)
+            require(err <= 1e-6, (kernel, label, err))
+        else:
+            frac, err = testing.bit_diff(got, want)
+            phase("check", kernel=kernel, tables=label, chars=got.shape[0], equal_frac=frac,
+                  max_abs_err=err)
+            require(frac == 1.0, (kernel, label, frac, err))
+        crowd_err[kernel] = max(crowd_err[kernel], err)
+
+    crowd_kernel_checks(dev, check_crowd, rtab, lights, t("mip_flat"))
 
     # the main path's model, camera and inputs
     cfg = EngineConfig(width=W, height=H, enable_physics=False)
@@ -404,21 +852,6 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                lod_bias=lod_bias)
     fargs = (ft, tables, lights, cfg.rim_light_intensity, eye, inv_vp)
 
-    # bounds from a run's inputs: the bytes each function must move (each
-    # input value it needs read once, each output written once) and the
-    # operations these inputs need, counted from the pairs the tables hold
-    def frame_bound(tabs, shade_tables, out):
-        """The frame kernel's: every pair's row, the per-tile starts and
-        counts and the shade tables in, the 18 planes out; per pair the
-        walk of its tile's pixels, the shade of each layer's pixels that
-        hold a fragment (an empty layer's output is fixed)."""
-        pairs = int(tabs.counts.sum())  # one row per pair
-        walk = PLANE_OPS + SAMPLE_OPS * cfg.msaa_samples
-        shaded = int((out[SG.O_AEFF] > 0).sum()) + int((out[SG.O_CH + SG.O_AEFF] > 0).sum())
-        return bound(pairs * FG.ROW_W * 4
-                     + nbytes(tabs.starts, tabs.counts, *shade_tables[1:4], out),
-                     pairs * FG.TILE_H * FG.TILE_W * walk + shaded * SHADE_OPS)
-
     s = cfg.msaa_samples
     walk_ops = PLANE_OPS + SAMPLE_OPS * s
     band_px = RG.BAND_H * RG.TILE_W
@@ -445,21 +878,6 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             ops += pair_bands * band_px * walk_ops
         return bound(nb / FG.N_PASSES, ops / FG.N_PASSES), frac
 
-    def present_tiles(stk):
-        """Per layer, the 32x128 tiles where it has a fragment."""
-        hp_, wp_ = stk.shape[-2:]
-        return [int((stk[layer * SG.L_CH + SG.L_AEFF] > 0).reshape(
-            hp_ // SG.STACK_TILE_H, SG.STACK_TILE_H, wp_ // SG.STACK_TILE_W,
-            SG.STACK_TILE_W).any(3).any(1).sum()) for layer in range(2)]
-
-    def shade_bound(stk, shade_tables, out):
-        """The stack shade's: a_eff of both layers everywhere, a layer's
-        other channels only in the 32x128 tiles where it is present
-        (elsewhere its output is fixed), the shade tables, all 18 output
-        planes; the shade's operations on the present tiles' pixels."""
-        tile_px, n_present = SG.STACK_TILE_H * SG.STACK_TILE_W, sum(present_tiles(stk))
-        return bound(2 * stk[0].numel() * 4 + n_present * tile_px * (SG.L_CH - 1) * 4
-                     + nbytes(*shade_tables[1:4], out), n_present * tile_px * SHADE_OPS)
     o_k = FG.render_megakernel(*fargs, **fkw)
     o_t = FG.render_megakernel_twin(*fargs, **fkw)
     check_exact("frame", f"main_path_{W}x{H}", o_k, o_t)
@@ -570,7 +988,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     counters = {"frame": FG.render_megakernel, "stream": FS.render_megakernel_stream,
                 "mxu": FM.render_megakernel_mxu, "hybrid": FH.render_megakernel_hybrid,
                 "composite": CG.composite, "raster_pass": RG.raster_pass,
-                "shade_stack": SG.shade_stack}
+                "shade_stack": SG.shade_stack,
+                "frame_crowd": FG.render_megakernel_crowd,
+                "stream_crowd": FS.render_megakernel_stream_crowd,
+                "shade_stack_crowd": SG.shade_stack_crowd, "composite_crowd": CG.composite_crowd}
     expected = {"main": {"frame": 1, "composite": 1},
                 "stream": {"stream": 1, "shade_stack": 1, "composite": 1},
                 "mxu": {"mxu": 1, "shade_stack": 1, "composite": 1},
@@ -678,6 +1099,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     require(bool(((late_g <= RIG_SPREAD * late_c) & (late_c <= RIG_SPREAD * late_g)).all()),
             ("rig joints and speeds, GPU vs CPU", late_g.tolist(), late_c.tolist()))
 
+    # 4c. the crowd (distrib.make_batched_step), then the batched kernels
+    # on its own inputs
+    crowd = crowd_phase(dev, model, breath, counters, check_crowd)
+
     # 5. timing: host clock over state-carrying steps (the step is
     # host-bound), the paths in turns in this one call; the kernels' own
     # device time (their wrappers' host work is longer than some of them);
@@ -744,7 +1169,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         for kname, fn in (("frame", FG.render_megakernel), ("hybrid", FH.render_megakernel_hybrid)):
             ms = kernel_ms(lambda: fn(*fa, **fkw), N_TIMED, f"{kname}_kernel")
             call = cuda_ms(lambda: fn(*fa, **fkw), N_TIMED)
-            b = frame_bound(tabs, shtab, fn(*fa, **fkw))
+            b = frame_bound(tabs, shtab, fn(*fa, **fkw), s)
             phase("set", kernel=kname, set=label, card=smi, pairs=int(tabs.counts.sum()),
                   ms=f"{ms:.4f}", call_ms=f"{call:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
                   share=f"{b[0] / ms:.3f}")
@@ -769,25 +1194,23 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
               present_tiles=present_tiles(stk), ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
               bound_ms=f"{b[0]:.4f}", bound_by=b[1], share=f"{b[0] / ms:.3f}")
 
+    # 5c. the crowd's char-frames/s, launches and device share, and its
+    # kernels' device time
+    crowd_ms = crowd_timing(dev, smi, model, breath, crowd)
+
     # bounds from this run's inputs (see frame_bound)
     p = dims.hp * dims.wp
     frame_pairs = int(ft.counts.sum())  # one row per pair
-    b_frame = frame_bound(ft, tables, o_k)
+    b_frame = frame_bound(ft, tables, o_k, s)
     # the hybrid kernel: the frame kernel's inputs, work and output
     b_hybrid = b_frame
     # the mxu kernel: the same rows in, the planar 24-channel stack out
     b_mxu = bound(frame_pairs * FG.ROW_W * 4 + nbytes(ft.starts, ft.counts)
                   + 2 * SG.L_CH * p * 4,
                   frame_pairs * FG.TILE_H * FG.TILE_W * (s * MXU_SAMPLE_OPS + 4))
-    # the stream kernel: its rows and bounds in, the 147-channel raw state out
-    stream_pairs = int(st.bounds[7].max())
-    b_stream = bound(stream_pairs * FG.ROW_W * 4 + nbytes(st.bounds, raw_k),
-                     stream_pairs * FG.TILE_H * FG.TILE_W * walk_ops)
-    # a half-res layer needs its footprint planes (O_DXDY, O_FX, O_FY) on
-    # even rows only (its even columns share those rows' memory sectors)
+    b_stream = stream_bound(st, raw_k, s)
     half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
-    b_comp = bound((2 * SG.O_CH - 1.5 * half_layers) * p * 4 + nbytes(atlas, img_k, seed_k),
-                   p * COMPOSITE_OPS)
+    b_comp = composite_bound(o_t, atlas, img_k, seed_k, half_layers)
     b_raster, touched_frac = raster_bound(ptabs)
     # a_eff of both layers everywhere; a layer's other channels only in the
     # 32x128 tiles where it is present (elsewhere its output is fixed); all
@@ -875,6 +1298,12 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           device_ops_per_substep=sub_prof["device_ops"],
           substep_top_host=sub_prof["top_host_ms"][:3])
 
+    # 8b. the batched solver on copies of the rig
+    rig_crowd_phase(dev, smi, rig[dev][0], wq_r, wp_r, plan_r,
+                    {"ms": "/".join(f"{x:.3f}" for x in rig_ms),
+                     "device_ms": frame_prof["device_busy_ms"],
+                     "launches": frame_prof["launch_calls"]})
+
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [
         {"name": "frame_megakernel", "route": "cuda",
@@ -913,6 +1342,19 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
              "launches": launches[name][name], "max_abs_err": exact_err[name],
              "ms": new_ms[name][0], "plain_ms": new_ms[name][1], "bound_ms": b_new[0],
              "bound_by": b_new[1], "library_ms": None})
+    for name, source, replaces in (
+            ("frame_megakernel_crowd", "frame.cu", "frame_tpu.py:704"),
+            ("composite_crowd", "composite.cu", "composite_tpu.py:110"),
+            ("stream_megakernel_crowd", "frame_stream.cu", "frame_stream.py:498"),
+            ("shade_stack_crowd", "shade_stack.cu", "shade_tpu.py:353")):
+        key = name.replace("_megakernel", "")
+        b_c = crowd["calls"][key][3]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"reze_tpu_torch/kernels/csrc/{source}",
+             "replaces": f"reze_tpu/kernels/{replaces}",
+             "launches": crowd["launches"][key], "max_abs_err": crowd_err[key],
+             "ms": crowd_ms[key][0], "plain_ms": crowd_ms[key][1], "bound_ms": b_c[0],
+             "bound_by": b_c[1], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,11 @@ Tensor = torch.Tensor
 
 
 def _eval_tween(state: TweenState, t: Tensor) -> tuple[Tensor, Tensor]:
-    """Eased rotation of every tween -> (rot (J, 4), done (J,))."""
+    """Eased rotation of every tween -> (rot (..., J, 4), done (..., J));
+    a crowd's state and ``t`` carry a leading character axis."""
     dur = torch.clamp(state.duration, min=1e-3)
-    u = torch.clamp((t - state.start_time) / dur, 0.0, 1.0)
+    t = torch.as_tensor(t, dtype=dur.dtype, device=dur.device)
+    u = torch.clamp((t[..., None] - state.start_time) / dur, 0.0, 1.0)
     rot = m3.quat_slerp(state.start_quat, state.target_quat, m3.ease_in_out(u))
     return rot, u >= 1.0
 
@@ -26,7 +28,7 @@ def apply_tweens(state: TweenState, local_rot: Tensor, t: Tensor
     """Write the eased rotations of active tweens into the pose and retire
     the finished ones."""
     rot, done = _eval_tween(state, t)
-    new_rot = torch.where(state.active[:, None], rot, local_rot)
+    new_rot = torch.where(state.active[..., None], rot, local_rot)
     return new_rot, dataclasses.replace(state, active=state.active & ~done)
 
 

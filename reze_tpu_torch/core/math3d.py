@@ -32,6 +32,13 @@ def const(values: tuple, dtype=torch.float32, device="cuda") -> Tensor:
     return c
 
 
+def take_rows(tab: Tensor, idx: Tensor) -> Tensor:
+    """Rows ``idx`` of ``tab`` (..., M, K) -> (..., N, K): ids (N,) shared
+    by the leading axes, or each leading index's own (..., N)."""
+    idx = idx.expand(tab.shape[:-2] + idx.shape[-1:])
+    return torch.gather(tab, -2, idx[..., None].expand(idx.shape + tab.shape[-1:]))
+
+
 def ease_in_out(t: Tensor) -> Tensor:
     """Quadratic ease-in-out."""
     return torch.where(t < 0.5, 2.0 * t * t, 1.0 - torch.square(-2.0 * t + 2.0) / 2.0)

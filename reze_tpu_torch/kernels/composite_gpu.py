@@ -7,6 +7,8 @@ dy`` from the shade outputs; a half-res layer takes the index of the
 even-row, even-column pixel of its 2x2 block. Layers blend back to front
 by ``a_eff`` with rim added; a layer without texture (index < 0) is white.
 The bloom seed is the vertical mean of each pair of rows.
+:func:`composite_crowd` runs the same kernel over a crowd's stacked shade
+outputs in one launch.
 """
 
 from __future__ import annotations
@@ -30,28 +32,53 @@ def composite(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
     :func:`composite_twin`."""
     if not o.is_cuda:
         return composite_twin(o, atlas, half0=half0, half1=half1, with_bloom=with_bloom)
+    img, half = _launch(o, atlas, half0, half1, with_bloom, None)
+    composite.launches += 1
+    return img, half
+
+
+composite.launches = 0
+
+
+def composite_crowd(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
+                    with_bloom: bool) -> tuple[Tensor, Tensor | None]:
+    """A crowd's shade outputs o (C, 2*O_CH, hp, wp) -> (images (C, 3, hp,
+    wp), bloom seeds (C, 3, hp/2, wp) or None) in one launch of
+    ``csrc/composite.cu``; CPU tensors run :func:`composite_crowd_twin`."""
+    if not o.is_cuda:
+        return composite_crowd_twin(o, atlas, half0=half0, half1=half1,
+                                    with_bloom=with_bloom)
+    img, half = _launch(o, atlas, half0, half1, with_bloom, o.shape[0])
+    composite_crowd.launches += 1
+    return img, half
+
+
+composite_crowd.launches = 0
+
+
+def _launch(o: Tensor, atlas: Tensor, half0: bool, half1: bool, with_bloom: bool,
+            n_chars: int | None) -> tuple[Tensor, Tensor | None]:
+    """Check the inputs and launch ``csrc/composite.cu`` over one character
+    (``n_chars`` None) or a crowd of ``n_chars``."""
     hp, wp = o.shape[-2:]
+    lead = () if n_chars is None else (n_chars,)
     if (o.dtype != torch.float32 or not o.is_contiguous()
-            or tuple(o.shape) != (2 * SG.O_CH, hp, wp) or hp % 2):
-        raise ValueError(f"o: need contiguous float32 (18, even hp, wp), got "
-                         f"{o.dtype} {tuple(o.shape)}")
+            or tuple(o.shape) != lead + (2 * SG.O_CH, hp, wp) or hp % 2):
+        raise ValueError(f"o: need contiguous float32 {lead + (2 * SG.O_CH,)} + (even hp, "
+                         f"wp), got {o.dtype} {tuple(o.shape)}")
     if (atlas.device != o.device or atlas.dtype != torch.uint8 or atlas.dim() != 2
             or atlas.shape[1] != 4 or not atlas.is_contiguous()
             or atlas.data_ptr() % 4):
         raise ValueError("atlas: need a contiguous, 4-byte aligned (N, 4) uint8 tensor "
                          "on the same device")
-    img = torch.empty((3, hp, wp), dtype=torch.float32, device=o.device)
-    half = torch.empty((3, hp // 2, wp), dtype=torch.float32, device=o.device)
+    img = torch.empty(lead + (3, hp, wp), dtype=torch.float32, device=o.device)
+    half = torch.empty(lead + (3, hp // 2, wp), dtype=torch.float32, device=o.device)
     err = cuda_lib.library().reze_composite(
         o.data_ptr(), atlas.data_ptr(), atlas.shape[0], img.data_ptr(), half.data_ptr(),
-        hp, wp, int(half0), int(half1), int(with_bloom),
+        hp, wp, int(half0), int(half1), int(with_bloom), n_chars or 1,
         torch.cuda.current_stream(o.device).cuda_stream)
     cuda_lib.check(err, "reze_composite")
-    composite.launches += 1
     return img, (half if with_bloom else None)
-
-
-composite.launches = 0
 
 
 def composite_twin(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
@@ -83,3 +110,13 @@ def composite_twin(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
     img = torch.stack(c)
     half = (img[:, 0::2] + img[:, 1::2]) * 0.5 if with_bloom else None
     return img, half
+
+
+def composite_crowd_twin(o: Tensor, atlas: Tensor, *, half0: bool, half1: bool,
+                         with_bloom: bool) -> tuple[Tensor, Tensor | None]:
+    """Plain torch version of :func:`composite_crowd`: the twin per
+    character."""
+    outs = [composite_twin(o[c], atlas, half0=half0, half1=half1, with_bloom=with_bloom)
+            for c in range(o.shape[0])]
+    img = torch.stack([x[0] for x in outs])
+    return img, (torch.stack([x[1] for x in outs]) if with_bloom else None)

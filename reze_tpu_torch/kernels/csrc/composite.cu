@@ -1,5 +1,7 @@
 // Composite epilogue for sm_90a: nearest albedo fetch, back-to-front blend
-// of the two stack layers, and the vertical half of the bloom box filter.
+// of the two stack layers, and the vertical half of the bloom box filter,
+// for one character or a crowd (the character as blockIdx.z, its planes
+// at 64-bit offsets; one atlas for all).
 //
 // Replaces reze_tpu/kernels/composite_tpu.py::composite_tpu (nearest mode)
 // together with the albedo gather that fed it
@@ -23,11 +25,11 @@ namespace reze {
 namespace {
 
 struct CompositeArgs {
-  const float* o;         // (18, hp, wp) shade outputs
+  const float* o;         // (C, 18, hp, wp) shade outputs
   const uint32_t* atlas;  // (N,) rgba8 texels, r in the low byte
   long long n_texels;
-  float* img;   // (3, hp, wp)
-  float* half;  // (3, hp / 2, wp) vertical mean of row pairs
+  float* img;   // (C, 3, hp, wp)
+  float* half;  // (C, 3, hp / 2, wp) vertical mean of row pairs
   int hp, wp, half0, half1, with_bloom;
 };
 
@@ -36,6 +38,12 @@ __global__ void composite_kernel(CompositeArgs a) {
   const int i = blockIdx.y;  // row pair
   if (x >= a.wp) return;
   const size_t plane = (size_t)a.hp * a.wp;
+  {  // this block's character
+    const size_t c = blockIdx.z;
+    a.o += c * (2 * O_CH) * plane;
+    a.img += c * 3 * plane;
+    a.half += c * 3 * (plane / 2);
+  }
   const float inv255 = (float)(1.0 / 255.0);
   float rgb[2][3];
   for (int r = 0; r < 2; ++r) {
@@ -81,13 +89,14 @@ __global__ void composite_kernel(CompositeArgs a) {
 
 extern "C" int reze_composite(const float* o, const void* atlas, long long n_texels,
                               float* img, float* half, int hp, int wp, int half0, int half1,
-                              int with_bloom, void* stream) {
+                              int with_bloom, int n_chars, void* stream) {
   using namespace reze;
-  if (hp <= 0 || wp <= 0 || hp % 2 || n_texels <= 0) return (int)cudaErrorInvalidValue;
+  if (hp <= 0 || wp <= 0 || hp % 2 || n_texels <= 0 || n_chars <= 0 || n_chars > 65535)
+    return (int)cudaErrorInvalidValue;
   CompositeArgs a{o, (const uint32_t*)atlas, n_texels, img, half, hp, wp, half0, half1,
                   with_bloom};
   const dim3 block(256);
-  const dim3 grid((wp + 255) / 256, hp / 2);
+  const dim3 grid((wp + 255) / 256, hp / 2, n_chars);
   composite_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

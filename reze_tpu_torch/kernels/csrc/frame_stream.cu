@@ -1,6 +1,7 @@
 // Stream frame megakernel for sm_90a: one walk of a tile's pairs of all
 // seven passes, merged in (tile, pass, draw) order, emitting the raw
-// per-pass winners of one 8x128 tile per thread block.
+// per-pass winners of one 8x128 tile per thread block, for one character
+// or a crowd (grid (tiles, characters)).
 //
 // Replaces reze_tpu/kernels/frame_stream.py::render_megakernel_stream
 // (Pallas, plane evaluation and fragment resolve as matrix products). Its
@@ -25,6 +26,12 @@
 // thread reads the same pair at the same time (broadcast). Output stores
 // are planar, consecutive threads on consecutive pixels of a row.
 //
+// A crowd launch adds the character as blockIdx.y: each character has its
+// own pair rows (rows_stride floats apart), bounds and output, at 64-bit
+// offsets (a crowd's raw output passes 4 GB: 38.5 MB per character at
+// 256x256). One character is the launch with one row of blocks, compiled
+// without the per-character offsets (CROWD false).
+//
 // Compiled with -fmad=false: each product rounds on its own, as in the
 // twin, so coverage and keys decide the same way.
 
@@ -48,13 +55,14 @@ constexpr int Q_A = 0, Q_B = 4, Q_C = 8, Q_O = 12;
 __host__ __device__ constexpr int pair_floats(int ns) { return Q_O + 4 * ns; }
 
 struct StreamArgs {
-  const float* rows;
-  const int* bounds;  // (8, B)
-  float* out;         // (147, hp, wp)
+  const float* rows;  // per character (N, ROW_W), rows_stride floats apart
+  size_t rows_stride;
+  const int* bounds;  // (C, 8, B)
+  float* out;         // (C, 147, hp, wp)
   int hp, wp;
 };
 
-template <int NS>
+template <int NS, bool CROWD>
 __global__ void __launch_bounds__(NPIX, 1) stream_kernel(StreamArgs a) {
   constexpr int PW = pair_floats(NS);
   extern __shared__ float sm[];
@@ -70,6 +78,12 @@ __global__ void __launch_bounds__(NPIX, 1) stream_kernel(StreamArgs a) {
   const int bi = b / bx_n, bj = b % bx_n;
   const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
   const float xs = (float)px + 0.5f, ys = (float)py + 0.5f;  // tile-local centre
+  if constexpr (CROWD) {  // this block's character
+    const size_t c = blockIdx.y;
+    a.rows += c * a.rows_stride;
+    a.bounds += c * (N_PASSES + 1) * (size_t)n_tiles;
+    a.out += c * (O_FRAG + N_PASSES * N_FRAG) * (size_t)a.hp * a.wp;
+  }
 
   for (int p = 0; p < N_PASSES; ++p) {
     keys[p * NPIX + tid] = SENTINEL;
@@ -159,29 +173,42 @@ __global__ void __launch_bounds__(NPIX, 1) stream_kernel(StreamArgs a) {
   }
 }
 
-template <int NS>
-void launch_stream(const StreamArgs& a, int n_tiles, cudaStream_t stream) {
+template <int NS, bool CROWD>
+void launch_as(const StreamArgs& a, dim3 grid, cudaStream_t stream) {
   const int smem = 2 * N_PASSES * NPIX * (int)sizeof(int)
                    + CHUNK * pair_floats(NS) * (int)sizeof(float);
-  cudaFuncSetAttribute(stream_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  stream_kernel<NS><<<n_tiles, NPIX, smem, stream>>>(a);
+  cudaFuncSetAttribute(stream_kernel<NS, CROWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  stream_kernel<NS, CROWD><<<grid, NPIX, smem, stream>>>(a);
+}
+
+template <int NS>
+void launch_stream(const StreamArgs& a, int n_tiles, int n_chars, cudaStream_t stream) {
+  if (n_chars == 1)
+    launch_as<NS, false>(a, dim3(n_tiles), stream);
+  else
+    launch_as<NS, true>(a, dim3(n_tiles, n_chars), stream);
 }
 
 }  // namespace
 }  // namespace reze
 
-extern "C" int reze_frame_stream(const float* rows, const int* bounds, float* out, int hp,
-                                 int wp, int n_samples, void* stream) {
+// n_chars characters: rows_stride floats between their pair rows; bounds
+// and out are stacked per character
+extern "C" int reze_frame_stream(const float* rows, long long rows_stride, const int* bounds,
+                                 float* out, int hp, int wp, int n_samples, int n_chars,
+                                 void* stream) {
   using namespace reze;
-  StreamArgs a{rows, bounds, out, hp, wp};
+  StreamArgs a{rows, (size_t)rows_stride, bounds, out, hp, wp};
   const int n_tiles = (hp / TILE_H) * (wp / TILE_W);
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (n_tiles <= 0 || n_chars <= 0 || n_chars > 65535 || rows_stride < 0)
+    return (int)cudaErrorInvalidValue;
   switch (n_samples) {
-    case 1: launch_stream<1>(a, n_tiles, st); break;
-    case 2: launch_stream<2>(a, n_tiles, st); break;
-    case 3: launch_stream<3>(a, n_tiles, st); break;
-    case 4: launch_stream<4>(a, n_tiles, st); break;
+    case 1: launch_stream<1>(a, n_tiles, n_chars, st); break;
+    case 2: launch_stream<2>(a, n_tiles, n_chars, st); break;
+    case 3: launch_stream<3>(a, n_tiles, n_chars, st); break;
+    case 4: launch_stream<4>(a, n_tiles, n_chars, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Toon/rim shade of a planar two-layer fragment stack for sm_90a, one
-// quarter (8 rows) of a 32x128 tile per thread block.
+// quarter (8 rows) of a 32x128 tile per thread block, for one character or
+// a crowd (grid (quarter tiles, characters)).
 //
 // Replaces reze_tpu/kernels/shade_tpu.py::shade_stack_tpu (Pallas). The
 // per-pixel math is shade.cuh::shade_pixel, the same code the frame kernel
@@ -29,6 +30,12 @@
 // layer's skip from its own rows and reads the other three quarters' a_eff
 // only when its own rows have no fragment. The shade tables are staged in
 // shared memory once per block, when a layer is present.
+//
+// A crowd launch adds the character as blockIdx.y: each character has its
+// own stack, output, eye position (misc) and inverse view-projection, at
+// 64-bit offsets; the shade tables are shared. One character is the
+// launch with one row of blocks, compiled without the per-character
+// offsets (CROWD false).
 //
 // Compiled with -fmad=false (see shade.cuh).
 
@@ -82,6 +89,7 @@ __device__ __forceinline__ void load_uv(const float* stk_l, size_t plane, size_t
   uv_of(iw, uw, vw, u, v, inv_iw);
 }
 
+template <bool CROWD>
 __global__ void __launch_bounds__(NTHREADS, 2) shade_stack_kernel(const float* stack, float* out,
                                                                  ShadeParams g) {
   // u, v of the block's rows (1..ROWS) and of the tile's rows above (0)
@@ -97,6 +105,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) shade_stack_kernel(const float* s
   const int ty = q * ROWS + w;  // row in the tile
   const int x0 = tj * TILE_W + PX * lane;
   const size_t plane = (size_t)g.hp * g.wp;
+  if constexpr (CROWD) {  // this block's character
+    const size_t c = blockIdx.y;
+    stack += c * (2 * L_CH) * plane;
+    out += c * (2 * O_CH) * plane;
+    g.misc += c * 8;
+    g.inv_vp += c * 16;
+  }
   const size_t i = (size_t)(ti * TILE_H + ty) * g.wp + x0;
   const float yg = ((float)ty + (float)(ti * TILE_H)) + 0.5f;
   ShadeParams sp = g;
@@ -188,14 +203,20 @@ extern "C" int reze_shade_stack(const float* stack, const float* knot, int kr, c
                                 int kt, int tex_cols, const float* edge, int ke,
                                 const float* ldir, const float* lcol, const float* misc,
                                 const float* inv_vp, float* out, int hp, int wp, int n_levels,
-                                void* stream) {
+                                int n_chars, void* stream) {
   using namespace reze;
   ShadeParams sp{knot, tex, edge, ldir, lcol, misc, inv_vp, kr, kt, tex_cols, ke,
                  n_levels, hp, wp};
   const int n_tiles = (hp / TILE_H) * (wp / TILE_W);
-  if (n_tiles <= 0 || kr > MAX_GROUPS || kt > MAX_GROUPS || ke > MAX_GROUPS
-      || tex_cols > MAX_TEX_COLS || ((uintptr_t)stack & 15) || ((uintptr_t)out & 15))
+  if (n_tiles <= 0 || n_chars <= 0 || n_chars > 65535 || kr > MAX_GROUPS || kt > MAX_GROUPS
+      || ke > MAX_GROUPS || tex_cols > MAX_TEX_COLS || ((uintptr_t)stack & 15)
+      || ((uintptr_t)out & 15))
     return (int)cudaErrorInvalidValue;
-  shade_stack_kernel<<<n_tiles * QUARTERS, NTHREADS, 0, (cudaStream_t)stream>>>(stack, out, sp);
+  if (n_chars == 1)
+    shade_stack_kernel<false><<<n_tiles * QUARTERS, NTHREADS, 0, (cudaStream_t)stream>>>(
+        stack, out, sp);
+  else
+    shade_stack_kernel<true><<<dim3(n_tiles * QUARTERS, n_chars), NTHREADS, 0,
+                               (cudaStream_t)stream>>>(stack, out, sp);
   return (int)cudaGetLastError();
 }

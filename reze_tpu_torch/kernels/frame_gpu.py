@@ -22,6 +22,10 @@ Semantics the kernel and its twin share with the reference:
   pass writes the stencil and hair alpha halves where it is set;
 * after the last pass each layer is shaded (``shade_gpu``); a layer with no
   fragment in the tile writes texel index -1 and zeros.
+
+:func:`render_megakernel_crowd` runs the same kernel over a crowd: every
+table gains a leading character axis (``pack_frame_rows`` of batched
+parts), and so do the eye positions and inverse view-projections.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import math3d as m3
 from ..render.raster import SAMPLE_OFFSETS, TriSetup
 from . import cuda_lib
 from . import shade_gpu as SG
@@ -71,6 +76,8 @@ G_CH = 8
 
 
 class FrameTables(NamedTuple):
+    """One character's tables; a crowd's carry a leading C axis on each."""
+
     rows: Tensor  # (CAP + pad, ROW_W) f32 pair rows, pass-major
     starts: Tensor  # (N_PASSES, B) int32 into rows
     counts: Tensor  # (N_PASSES, B) int32
@@ -88,40 +95,44 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
                    with_attrs: bool):
     """One pass -> (tab (T, ROW_W), bin_id (cap,), ok (cap,), tri_of_k
     (cap,), total ()): the triangle rows and the exact (tile, triangle)
-    pair enumeration in triangle order, for :func:`pack_frame_rows`."""
-    t = tri.valid.shape[0]
+    pair enumeration in triangle order, for :func:`pack_frame_rows`. A
+    crowd's triangles (and material columns, where they differ) carry a
+    leading character axis, and so does every output: each character's
+    are those of its own call."""
+    lead, t = tri.valid.shape[:-1], tri.valid.shape[-1]
     dev = tri.valid.device
     inv2a = tri.inv_area2
-    za = torch.sum(tri.ea * tri.z, dim=1) * inv2a
-    zb = torch.sum(tri.eb * tri.z, dim=1) * inv2a
-    zc = torch.sum(tri.ec * tri.z, dim=1) * inv2a
+    za = torch.sum(tri.ea * tri.z, dim=-1) * inv2a
+    zb = torch.sum(tri.eb * tri.z, dim=-1) * inv2a
+    zc = torch.sum(tri.ec * tri.z, dim=-1) * inv2a
 
-    xmin = torch.where(tri.valid, tri.sx.amin(1), 1e9)
-    xmax = torch.where(tri.valid, tri.sx.amax(1), -1e9)
-    ymin = torch.where(tri.valid, tri.sy.amin(1), 1e9)
-    ymax = torch.where(tri.valid, tri.sy.amax(1), -1e9)
+    xmin = torch.where(tri.valid, tri.sx.amin(-1), 1e9)
+    xmax = torch.where(tri.valid, tri.sx.amax(-1), -1e9)
+    ymin = torch.where(tri.valid, tri.sy.amin(-1), 1e9)
+    ymax = torch.where(tri.valid, tri.sy.amax(-1), -1e9)
 
-    ea = tri.ea * inv2a[:, None]
-    eb = tri.eb * inv2a[:, None]
-    ec = tri.ec * inv2a[:, None]
+    ea = tri.ea * inv2a[..., None]
+    eb = tri.eb * inv2a[..., None]
+    ec = tri.ec * inv2a[..., None]
     code = (torch.round(torch.clamp(alpha, 0.0, 1.0) * 1023.0)
             + 1024.0 * (ramp_gid + 16.0 * tex_gid + 256.0 * edge_gid + 4096.0 * is_hair))
+    code = code.expand(lead + (t,))
     ig = torch.rsqrt(torch.clamp(ea * ea + eb * eb, min=1e-24))
     zero = torch.zeros_like(code)
-    cols = [ea[:, 0], eb[:, 0], ec[:, 0], ea[:, 1], eb[:, 1], ec[:, 1],
-            ea[:, 2], eb[:, 2], ec[:, 2], za, zb, zc, ymin, ymax,
-            code, ig[:, 0], ig[:, 1], ig[:, 2], zero]
+    cols = [ea[..., 0], eb[..., 0], ec[..., 0], ea[..., 1], eb[..., 1], ec[..., 1],
+            ea[..., 2], eb[..., 2], ec[..., 2], za, zb, zc, ymin, ymax,
+            code, ig[..., 0], ig[..., 1], ig[..., 2], zero]
     if with_attrs:
         # attribute planes: three products that can cancel to far below
         # their size, so they are summed in float64 and rounded once
         iw = tri.inv_w[..., None]
         vals = torch.cat([corner_uv * iw, corner_nrm * iw, iw], dim=-1).double()  # (T, 3, 6)
-        attr = torch.cat([torch.sum(e.double()[:, :, None] * vals, dim=1) for e in (ea, eb, ec)],
-                         dim=1).float()
+        attr = torch.cat([torch.sum(e.double()[..., None] * vals, dim=-2) for e in (ea, eb, ec)],
+                         dim=-1).float()
     else:
-        attr = torch.zeros((t, 18), device=dev)
-    tab = torch.cat([torch.stack(cols, dim=1), attr,
-                     torch.zeros((t, ROW_W - ROW_USED), device=dev)], dim=1)
+        attr = torch.zeros(lead + (t, 18), device=dev)
+    tab = torch.cat([torch.stack(cols, dim=-1), attr,
+                     torch.zeros(lead + (t, ROW_W - ROW_USED), device=dev)], dim=-1)
 
     # exact pair enumeration over each triangle's tile bounding box
     def tile_of(v, size, n):
@@ -134,19 +145,23 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
     nx = bx1 - bx0 + 1
     live = tri.valid & (xmax >= xmin)
     n_bins_tri = torch.where(live, nx * (by1 - by0 + 1), 0)
-    ends_tri = torch.cumsum(n_bins_tri, 0)
+    ends_tri = torch.cumsum(n_bins_tri, -1)
     starts_tri = ends_tri - n_bins_tri
-    total = ends_tri[-1]
+    total = ends_tri[..., -1]
     # run-length expansion: mark each triangle's first slot, cumsum
-    marks = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-    marks.index_add_(0, torch.clamp(starts_tri, max=cap), torch.ones_like(starts_tri))
-    tri_of_k = torch.clamp(torch.cumsum(marks[:cap], 0) - 1, 0, t - 1)
+    marks = torch.zeros(lead + (cap + 1,), dtype=torch.int64, device=dev)
+    marks.scatter_add_(-1, torch.clamp(starts_tri, max=cap), torch.ones_like(starts_tri))
+    tri_of_k = torch.clamp(torch.cumsum(marks[..., :cap], -1) - 1, 0, t - 1)
+
+    def at_k(v):  # a per-triangle value at each slot's triangle
+        return torch.gather(v, -1, tri_of_k)
+
     k = torch.arange(cap, device=dev)
-    slot = k - starts_tri[tri_of_k]
-    ok = k < total
-    nx_k = torch.clamp(nx[tri_of_k], min=1)
+    slot = k - at_k(starts_tri)
+    ok = k < total[..., None]
+    nx_k = torch.clamp(at_k(nx), min=1)
     sy = torch.div(slot, nx_k, rounding_mode="floor")
-    bin_id = (by0[tri_of_k] + sy) * bx + (bx0[tri_of_k] + (slot - sy * nx_k))
+    bin_id = (at_k(by0) + sy) * bx + (at_k(bx0) + (slot - sy * nx_k))
     return tab, bin_id, ok, tri_of_k, total
 
 
@@ -157,37 +172,41 @@ def pack_frame_rows(parts, by: int, bx: int) -> FrameTables:
     tile) with tri field 0, plus a terminator, sorts right before its
     segment, so starts[s] = pos(marker s) + 1 and counts[s] = pos(marker
     s+1) - pos(marker s) - 1. Markers and dropped pairs gather a zero row.
+    A crowd's parts give tables with a leading character axis, each
+    character sorted along its own keys.
     """
     assert len(parts) == N_PASSES
     b_total = by * bx
     nseg = N_PASSES * b_total
+    lead = parts[0][2].shape[:-1]
     dev = parts[0][0].device
     keys = []
     off = 0  # the pass's first row in the joined table, carried in the key
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros(lead, dtype=torch.int64, device=dev)
     for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
         keys.append(torch.where(ok, ((p * b_total + bin_id) << 32) + tri_of_k + off + 1,
                                 (nseg << 32) + 1))
-        off += tab.shape[0]
-        overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
-    markers = torch.arange(nseg + 1, dtype=torch.int64, device=dev) << 32
-    key, _ = torch.sort(torch.cat(keys + [markers]))
+        off += tab.shape[-2]
+        overflow = overflow + torch.clamp(total - ok.shape[-1], min=0)
+    markers = (torch.arange(nseg + 1, dtype=torch.int64, device=dev) << 32).expand(
+        lead + (nseg + 1,))
+    key, _ = torch.sort(torch.cat(keys + [markers], -1), dim=-1)
     tri_f = key & 0xFFFFFFFF
     sk = key >> 32
     is_pair = (tri_f != 0) & (sk < nseg)
-    tab_all = torch.cat([pp[0] for pp in parts] + [torch.zeros((1, ROW_W), device=dev)])
-    row_idx = torch.where(is_pair, tri_f - 1, tab_all.shape[0] - 1)
-    rows = tab_all[row_idx]
-    p_s = torch.searchsorted(key, markers)  # marker positions (keys are unique)
-    starts = p_s[:-1] + 1
-    counts = p_s[1:] - p_s[:-1] - 1
-    n = key.shape[0]
+    tab_all = torch.cat([pp[0].expand(lead + pp[0].shape[-2:]) for pp in parts]
+                        + [torch.zeros(lead + (1, ROW_W), device=dev)], -2)
+    rows = m3.take_rows(tab_all, torch.where(is_pair, tri_f - 1, tab_all.shape[-2] - 1))
+    p_s = torch.searchsorted(key, markers.contiguous())  # marker positions (keys are unique)
+    starts = p_s[..., :-1] + 1
+    counts = p_s[..., 1:] - p_s[..., :-1] - 1
+    n = key.shape[-1]
     pad = CHUNK + (-n) % CHUNK
-    rows = torch.cat([rows, torch.zeros((pad, ROW_W), device=dev)])
+    rows = torch.cat([rows, torch.zeros(lead + (pad, ROW_W), device=dev)], -2)
     return FrameTables(
         rows=rows.contiguous(),
-        starts=starts.reshape(N_PASSES, b_total).to(torch.int32).contiguous(),
-        counts=counts.reshape(N_PASSES, b_total).to(torch.int32).contiguous(),
+        starts=starts.reshape(lead + (N_PASSES, b_total)).to(torch.int32).contiguous(),
+        counts=counts.reshape(lead + (N_PASSES, b_total)).to(torch.int32).contiguous(),
         overflow=overflow,
     )
 
@@ -212,27 +231,8 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
             tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp,
             wp=wp, n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias,
             analytic=analytic)
-    if analytic:
-        n_samples = 1
-    check_frame_tables(tables, hp, wp, n_samples)
-    if tables.rows.data_ptr() % 16:
-        raise ValueError("rows: the kernel copies them in 16-byte units; need an aligned tensor")
-    dev = tables.rows.device
-    lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
-    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
-    out = torch.empty((2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
-    lib = cuda_lib.library()
-    err = lib.reze_frame(
-        tables.rows.data_ptr(), tables.starts.data_ptr(), tables.counts.data_ptr(),
-        shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
-        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
-        shade_tables.tex_tab.shape[1],
-        shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
-        lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
-        out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(err, "reze_frame")
+    out = _launch_frame(tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp,
+                        wp, n_samples, use_mips, lod_bias, analytic, None)
     render_megakernel.launches += 1
     return out
 
@@ -240,27 +240,92 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
 render_megakernel.launches = 0
 
 
-def check_rows(rows: Tensor, hp: int, wp: int, n_samples: int) -> None:
+def render_megakernel_crowd(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                            rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
+                            hp: int, wp: int, n_samples: int, use_mips: bool = False,
+                            lod_bias: tuple[float, float] = (0.0, 0.0),
+                            analytic: bool = False) -> Tensor:
+    """A crowd's tables (rows (C, N, ROW_W), starts and counts (C,
+    N_PASSES, B)), eye positions (C, 3) and inverse view-projections (C, 4,
+    4) -> (C, 2*O_CH, hp, wp) in one launch of ``csrc/frame.cu``; the
+    shade tables are shared. CPU tensors run
+    :func:`render_megakernel_crowd_twin`."""
+    if not tables.rows.is_cuda:
+        return render_megakernel_crowd_twin(
+            tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp, wp=wp,
+            n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
+    out = _launch_frame(tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp,
+                        wp, n_samples, use_mips, lod_bias, analytic, tables.rows.shape[0])
+    render_megakernel_crowd.launches += 1
+    return out
+
+
+render_megakernel_crowd.launches = 0
+
+
+def _launch_frame(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                  rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, hp: int, wp: int,
+                  n_samples: int, use_mips: bool, lod_bias, analytic: bool,
+                  n_chars: int | None) -> Tensor:
+    """Check the inputs and launch ``csrc/frame.cu`` over one character
+    (``n_chars`` None) or a crowd of ``n_chars``."""
+    if analytic:
+        n_samples = 1
+    check_frame_tables(tables, hp, wp, n_samples, n_chars)
+    rows = tables.rows
+    stride = rows.stride(0) if n_chars is not None else 0
+    # the kernel bulk-copies each character's rows in 16-byte units
+    if rows.data_ptr() % 16 or stride % 4:
+        raise ValueError("rows: the kernel copies them in 16-byte units; every character's "
+                         "rows must start 16-byte aligned")
+    dev = rows.device
+    lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
+    SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev, n_chars)
+    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
+    lead = () if n_chars is None else (n_chars,)
+    out = torch.empty(lead + (2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
+    err = cuda_lib.library().reze_frame(
+        rows.data_ptr(), stride, tables.starts.data_ptr(), tables.counts.data_ptr(),
+        shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
+        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
+        shade_tables.tex_tab.shape[1],
+        shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
+        lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
+        out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels, n_chars or 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "reze_frame")
+    return out
+
+
+def check_rows(rows: Tensor, hp: int, wp: int, n_samples: int,
+               n_chars: int | None = None) -> None:
     """Raise unless the frame shape, the sample count and the pair rows are
-    what the megakernels take."""
+    what the megakernels take: one character's contiguous (N, ROW_W) rows,
+    or with ``n_chars`` a crowd's (C, N, ROW_W), each character's rows
+    contiguous."""
     if hp % TILE_H or wp % TILE_W or not 1 <= n_samples <= len(SAMPLE_OFFSETS):
         raise ValueError(f"bad frame shape/samples: {hp}x{wp}, {n_samples}")
-    if (rows.dtype != torch.float32 or not rows.is_contiguous() or rows.dim() != 2
-            or rows.shape[1] != ROW_W):
-        raise ValueError(f"rows: need a contiguous float32 (N, {ROW_W}) tensor, got "
-                         f"{rows.dtype} {tuple(rows.shape)}")
+    lead = () if n_chars is None else (n_chars,)
+    inner = rows[(0,) * len(lead)] if rows.dim() == len(lead) + 2 else rows
+    if (rows.dtype != torch.float32 or rows.dim() != len(lead) + 2
+            or tuple(rows.shape[:len(lead)]) != lead or rows.shape[-1] != ROW_W
+            or not inner.is_contiguous()):
+        raise ValueError(f"rows: need a float32 {lead} + (N, {ROW_W}) tensor, each "
+                         f"character's rows contiguous, got {rows.dtype} {tuple(rows.shape)}")
 
 
-def check_frame_tables(tables: FrameTables, hp: int, wp: int, n_samples: int) -> None:
+def check_frame_tables(tables: FrameTables, hp: int, wp: int, n_samples: int,
+                       n_chars: int | None = None) -> None:
     """Raise unless ``tables`` and the frame shape are what the kernels that
-    walk :class:`FrameTables` take."""
-    check_rows(tables.rows, hp, wp, n_samples)
+    walk :class:`FrameTables` take (a crowd's with ``n_chars``)."""
+    check_rows(tables.rows, hp, wp, n_samples, n_chars)
     b_total = (hp // TILE_H) * (wp // TILE_W)
     dev = tables.rows.device
+    shape = (() if n_chars is None else (n_chars,)) + (N_PASSES, b_total)
     for name, t in (("starts", tables.starts), ("counts", tables.counts)):
         if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
-                or tuple(t.shape) != (N_PASSES, b_total)):
-            raise ValueError(f"{name}: need contiguous int32 ({N_PASSES}, {b_total}) on {dev}")
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: need contiguous int32 {shape} on {dev}")
 
 
 def _tiles_to_frame(x: Tensor, by: int, bx: int) -> Tensor:
@@ -457,3 +522,17 @@ def render_megakernel_twin(tables: FrameTables, shade_tables: SG.ShadeTables, li
 
     return shade_frame(stack, shade_tables, lights, lcol, misc, inv_vp, x0f, y0f, hp, wp,
                        use_mips)
+
+
+def render_megakernel_crowd_twin(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                                 rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
+                                 hp: int, wp: int, n_samples: int, use_mips: bool = False,
+                                 lod_bias: tuple[float, float] = (0.0, 0.0),
+                                 analytic: bool = False) -> Tensor:
+    """Plain torch version of :func:`render_megakernel_crowd`: the twin per
+    character."""
+    return torch.stack([render_megakernel_twin(
+        FrameTables(tables.rows[c], tables.starts[c], tables.counts[c], tables.overflow[c]),
+        shade_tables, lights, rim_intensity, eye_pos[c], inv_vp[c], hp=hp, wp=wp,
+        n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
+        for c in range(tables.rows.shape[0])])

@@ -26,6 +26,10 @@ the raw state into the two-layer stack.
   pair passed keeps the key ``SENTINEL`` and zeros.
 * :func:`compose_stream_state` (plain torch) is the closed form of the
   per-pass push over the raw state -> the planar stack (2*L_CH, hp, wp).
+
+:func:`render_megakernel_stream_crowd` runs the same kernel over a crowd
+(tables with a leading character axis, raw output (C, S_OUT, hp, wp)),
+and :func:`compose_stream_state` takes the leading axis as it stands.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import math3d as m3
 from ..render.raster import SAMPLE_OFFSETS
 from . import cuda_lib
 from . import frame_gpu as FG
@@ -58,6 +63,8 @@ S_OUT = O_FRAG + N_PASSES * N_FRAG  # 147
 
 
 class StreamTables(NamedTuple):
+    """One character's tables; a crowd's carry a leading C axis on each."""
+
     rows: Tensor  # (CAP + 128, ROW_W) f32 pair rows in (tile, pass, draw) order
     bounds: Tensor  # (8, B) int32: [p, b] first row of (tile b, pass p); [7, b] its end
     overflow: Tensor  # () int64 pairs dropped at the capacity
@@ -66,34 +73,39 @@ class StreamTables(NamedTuple):
 def pack_stream(parts, by: int, bx: int) -> StreamTables:
     """Merge the passes' pair enumerations (``frame_gpu.pack_pass_part``'s
     (tab, bin_id, ok, tri_of_k, total) per pass) into one stream sorted by
-    (tile, pass, draw order). Dropped pairs sort last and gather zero rows."""
+    (tile, pass, draw order). Dropped pairs sort last and gather zero rows.
+    A crowd's parts give tables with a leading character axis, each
+    character sorted along its own keys."""
     assert len(parts) == N_PASSES
     b_total = by * bx
+    lead = parts[0][2].shape[:-1]
     dev = parts[0][0].device
     dead = (b_total * 8) << 32
     keys = []
     off = 0  # the pass's first row in the joined table, carried in the key
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros(lead, dtype=torch.int64, device=dev)
     for p, (tab, bin_id, ok, tri_of_k, total) in enumerate(parts):
         keys.append(torch.where(ok, ((bin_id * 8 + p) << 32) + tri_of_k + off, dead))
-        off += tab.shape[0]
-        overflow = overflow + torch.clamp(total - ok.shape[0], min=0)
-    tab_all = torch.cat([pp[0] for pp in parts])
-    key, _ = torch.sort(torch.cat(keys))
-    cap = key.shape[0]
+        off += tab.shape[-2]
+        overflow = overflow + torch.clamp(total - ok.shape[-1], min=0)
+    tab_all = torch.cat([pp[0].expand(lead + pp[0].shape[-2:]) for pp in parts], -2)
+    key, _ = torch.sort(torch.cat(keys, -1), dim=-1)
+    cap = key.shape[-1]
     sk = key >> 32  # tile * 8 + pass
     n_q = b_total * 8
     live = sk < n_q
     row_idx = torch.where(live, key & 0xFFFFFFFF, 0)
-    rows = torch.where(live[:, None], tab_all[row_idx], 0.0)
+    rows = torch.where(live[..., None], m3.take_rows(tab_all, row_idx), 0.0)
     # a fixed-size count (bincount of a masked tensor reads its size on the host)
-    counts_q = torch.zeros(n_q + 1, dtype=torch.int64, device=dev).scatter_add_(
-        0, torch.clamp(sk, max=n_q), torch.ones_like(sk))[:n_q]
-    bounds = torch.clamp(torch.cumsum(counts_q, 0) - counts_q, max=cap)
-    rows = torch.cat([rows, torch.zeros((WINDOW, FG.ROW_W), device=dev)])
-    return StreamTables(rows=rows.contiguous(),
-                        bounds=bounds.reshape(b_total, 8).T.to(torch.int32).contiguous(),
-                        overflow=overflow)
+    counts_q = torch.zeros(lead + (n_q + 1,), dtype=torch.int64, device=dev).scatter_add_(
+        -1, torch.clamp(sk, max=n_q), torch.ones_like(sk))[..., :n_q]
+    bounds = torch.clamp(torch.cumsum(counts_q, -1) - counts_q, max=cap)
+    rows = torch.cat([rows, torch.zeros(lead + (WINDOW, FG.ROW_W), device=dev)], -2)
+    return StreamTables(
+        rows=rows.contiguous(),
+        bounds=bounds.reshape(lead + (b_total, 8)).transpose(-1, -2).to(torch.int32)
+        .contiguous(),
+        overflow=overflow)
 
 
 def render_megakernel_stream(tables: StreamTables, *, hp: int, wp: int,
@@ -104,23 +116,58 @@ def render_megakernel_stream(tables: StreamTables, *, hp: int, wp: int,
     :func:`render_megakernel_stream_twin`."""
     if not tables.rows.is_cuda:
         return render_megakernel_stream_twin(tables, hp=hp, wp=wp, n_samples=n_samples)
-    FG.check_rows(tables.rows, hp, wp, n_samples)
-    b_total = (hp // TILE_H) * (wp // TILE_W)
-    dev = tables.rows.device
-    rows, bounds = tables.rows, tables.bounds
-    if (bounds.device != dev or bounds.dtype != torch.int32 or not bounds.is_contiguous()
-            or tuple(bounds.shape) != (8, b_total)):
-        raise ValueError(f"bounds: need contiguous int32 (8, {b_total}) on {dev}")
-    out = torch.empty((S_OUT, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_frame_stream(
-        rows.data_ptr(), bounds.data_ptr(), out.data_ptr(), hp, wp, n_samples,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(err, "reze_frame_stream")
+    out = _launch_stream(tables, hp, wp, n_samples, None)
     render_megakernel_stream.launches += 1
     return out
 
 
 render_megakernel_stream.launches = 0
+
+
+def render_megakernel_stream_crowd(tables: StreamTables, *, hp: int, wp: int,
+                                   n_samples: int) -> Tensor:
+    """A crowd's tables (rows (C, N, ROW_W), bounds (C, 8, B)) -> raw
+    per-pass winner states (C, S_OUT, hp, wp) in one launch of
+    ``csrc/frame_stream.cu``; CPU tensors run
+    :func:`render_megakernel_stream_crowd_twin`."""
+    if not tables.rows.is_cuda:
+        return render_megakernel_stream_crowd_twin(tables, hp=hp, wp=wp, n_samples=n_samples)
+    out = _launch_stream(tables, hp, wp, n_samples, tables.rows.shape[0])
+    render_megakernel_stream_crowd.launches += 1
+    return out
+
+
+render_megakernel_stream_crowd.launches = 0
+
+
+def _launch_stream(tables: StreamTables, hp: int, wp: int, n_samples: int,
+                   n_chars: int | None) -> Tensor:
+    """Check the inputs and launch ``csrc/frame_stream.cu`` over one
+    character (``n_chars`` None) or a crowd of ``n_chars``."""
+    FG.check_rows(tables.rows, hp, wp, n_samples, n_chars)
+    b_total = (hp // TILE_H) * (wp // TILE_W)
+    dev = tables.rows.device
+    rows, bounds = tables.rows, tables.bounds
+    lead = () if n_chars is None else (n_chars,)
+    if (bounds.device != dev or bounds.dtype != torch.int32 or not bounds.is_contiguous()
+            or tuple(bounds.shape) != lead + (8, b_total)):
+        raise ValueError(f"bounds: need contiguous int32 {lead + (8, b_total)} on {dev}")
+    out = torch.empty(lead + (S_OUT, hp, wp), dtype=torch.float32, device=dev)
+    err = cuda_lib.library().reze_frame_stream(
+        rows.data_ptr(), rows.stride(0) if n_chars is not None else 0, bounds.data_ptr(),
+        out.data_ptr(), hp, wp, n_samples, n_chars or 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "reze_frame_stream")
+    return out
+
+
+def render_megakernel_stream_crowd_twin(tables: StreamTables, *, hp: int, wp: int,
+                                        n_samples: int) -> Tensor:
+    """Plain torch version of :func:`render_megakernel_stream_crowd`: the
+    twin per character."""
+    return torch.stack([render_megakernel_stream_twin(
+        StreamTables(tables.rows[c], tables.bounds[c], tables.overflow[c]), hp=hp, wp=wp,
+        n_samples=n_samples) for c in range(tables.rows.shape[0])])
 
 
 def render_megakernel_stream_twin(tables: StreamTables, *, hp: int, wp: int,
@@ -206,20 +253,26 @@ def render_megakernel_stream_twin(tables: StreamTables, *, hp: int, wp: int,
 
 
 def compose_stream_state(raw: Tensor, n_samples: int) -> Tensor:
-    """Raw per-pass winner state (S_OUT, hp, wp) -> the planar two-layer
-    stack (2*L_CH, hp, wp).
+    """Raw per-pass winner state (..., S_OUT, hp, wp) -> the planar
+    two-layer stack (..., 2*L_CH, hp, wp), a crowd's characters together
+    (every channel read as a view of ``raw``, never copied).
 
     The closed form of the per-pass push: layer 1 is the last present
     fragment in pass order, layer 0 the one before it unless layer 1 is
     opaque; the eye pass's coverage is the stencil that halves hair
     alpha; ``a_eff < 0.001`` is absent."""
     f32 = torch.float32
-    _, hp, wp = raw.shape
+    lead, (hp, wp) = raw.shape[:-3], raw.shape[-2:]
     dev = raw.device
     inv_s = 1.0 / n_samples
-    best = [raw[O_BEST + p].contiguous().view(torch.int32) for p in range(N_PASSES)]
-    cover = [raw[O_COVER + p] * inv_s for p in range(N_PASSES)]
-    code = [torch.round(raw[O_FRAG + p * N_FRAG]).to(torch.int32) for p in range(N_PASSES)]
+
+    def ch(i, x=raw):
+        return x[..., i, :, :]
+
+    bits = raw.view(torch.int32)
+    best = [ch(O_BEST + p, bits) for p in range(N_PASSES)]
+    cover = [ch(O_COVER + p) * inv_s for p in range(N_PASSES)]
+    code = [torch.round(ch(O_FRAG + p * N_FRAG)).to(torch.int32) for p in range(N_PASSES)]
 
     stencil = (best[1] < SENTINEL) & (cover[1] > 0.0)
     present, opaque, a_eff, z = [], [], [], []
@@ -254,25 +307,25 @@ def compose_stream_state(raw: Tensor, n_samples: int) -> Tensor:
     py = torch.arange(hp, dtype=f32, device=dev)[:, None] + 0.5
 
     def layer(select, alive):
-        zero = torch.zeros((hp, wp), device=dev)
-        ch = [zero] * SG.L_CH
+        zero = torch.zeros(lead + (hp, wp), device=dev)
+        out = [zero] * SG.L_CH
         for p, (is_out, _, _, _) in enumerate(FG.PASS_CFG):
             selp = (select[p] & alive).to(f32)
-            ch[SG.L_AEFF] = ch[SG.L_AEFF] + selp * a_eff[p]
-            ch[SG.L_Z] = ch[SG.L_Z] + selp * z[p]
+            out[SG.L_AEFF] = out[SG.L_AEFF] + selp * a_eff[p]
+            out[SG.L_Z] = out[SG.L_Z] + selp * z[p]
             rest = code[p] >> 10
-            ch[SG.L_RAMP] = ch[SG.L_RAMP] + selp * (rest & 15).to(f32)
-            ch[SG.L_TEX] = ch[SG.L_TEX] + selp * ((rest >> 4) & 15).to(f32)
-            ch[SG.L_EDGE] = ch[SG.L_EDGE] + selp * ((rest >> 8) & 15).to(f32)
+            out[SG.L_RAMP] = out[SG.L_RAMP] + selp * (rest & 15).to(f32)
+            out[SG.L_TEX] = out[SG.L_TEX] + selp * ((rest >> 4) & 15).to(f32)
+            out[SG.L_EDGE] = out[SG.L_EDGE] + selp * ((rest >> 8) & 15).to(f32)
             if is_out:
-                ch[SG.L_OUT] = ch[SG.L_OUT] + selp
+                out[SG.L_OUT] = out[SG.L_OUT] + selp
             else:
                 fb = O_FRAG + p * N_FRAG
                 for c in range(6):
-                    val = (raw[fb + 1 + c] * px + raw[fb + 7 + c] * py) + raw[fb + 13 + c]
-                    ch[SG.L_UIW + c] = ch[SG.L_UIW + c] + selp * val
-        return torch.stack(ch)
+                    val = (ch(fb + 1 + c) * px + ch(fb + 7 + c) * py) + ch(fb + 13 + c)
+                    out[SG.L_UIW + c] = out[SG.L_UIW + c] + selp * val
+        return torch.stack(out, dim=-3)
 
     l1 = layer(take1, torch.ones_like(present[0]))
     l0 = layer(take2, ~l1_opaque)
-    return torch.cat([l0, l1]).contiguous()
+    return torch.cat([l0, l1], dim=-3).contiguous()

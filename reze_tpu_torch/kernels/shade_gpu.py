@@ -5,7 +5,9 @@ tables, the plain torch shade, and the standalone stack-shade kernel
 The CUDA form of the per-pixel math is ``csrc/shade.cuh::shade_pixel``.
 The frame kernel inlines it on 8x128 tiles; :func:`shade_stack` launches
 ``csrc/shade_stack.cu``, which applies it to a planar (24, hp, wp) stack
-on 32x128 tiles. :func:`shade_layer` is the twin of both.
+on 32x128 tiles, and :func:`shade_stack_crowd` the same kernel over a
+crowd's stacked (C, 24, hp, wp) stacks in one launch. :func:`shade_layer`
+is the twin of both.
 
 Per pixel: divide the attributes by 1/w, normalize the normal, pick a mip
 level from screen-space uv differences (taken inside each tile, with
@@ -225,17 +227,19 @@ def shade_layer(stk: list[Tensor], knot_tab: Tensor, tex_tab: Tensor,
 
 def shade_inputs(shade_tables: ShadeTables, lights, rim_intensity: float,
                  eye_pos: Tensor, lod_bias) -> tuple[Tensor, Tensor]:
-    """-> (lcol (4, 3), misc (8,)): misc = [ambient, rim, eye xyz, atlas
-    stride, lod bias layer 0, lod bias layer 1]. The host's numbers reach
-    the device as fills, not copies, which would wait for the stream."""
+    """-> (lcol (4, 3), misc (..., 8)): misc = [ambient, rim, eye xyz, atlas
+    stride, lod bias layer 0, lod bias layer 1], one row per character for
+    a (C, 3) ``eye_pos``. The host's numbers reach the device as fills, not
+    copies, which would wait for the stream."""
     dev = eye_pos.device
+    lead = eye_pos.shape[:-1] + (1,)
     active = (torch.arange(4, device=dev) < lights.count).to(torch.float32)[:, None]
     lcol = lights.color * lights.intensity[:, None] * active
     rim, stride, bias0, bias1 = (
-        torch.full((1,), float(x), dtype=torch.float32, device=dev)
+        torch.full(lead, float(x), dtype=torch.float32, device=dev)
         for x in (rim_intensity, shade_tables.atlas_stride, *lod_bias))
-    misc = torch.cat([lights.ambient.to(torch.float32).reshape(1), rim, eye_pos[:3], stride,
-                      bias0, bias1])
+    ambient = lights.ambient.to(torch.float32).reshape(1).expand(lead)
+    misc = torch.cat([ambient, rim, eye_pos[..., :3], stride, bias0, bias1], -1)
     return lcol.contiguous(), misc.contiguous()
 
 
@@ -260,16 +264,21 @@ def shade_tiles(stack: list[Tensor], shade_tables: ShadeTables, lights, lcol: Te
 
 
 def check_shade_args(shade_tables: ShadeTables, lights, lcol: Tensor, misc: Tensor,
-                     inv_vp: Tensor, dev) -> None:
-    """Raise unless the shade inputs are what the CUDA kernels take."""
+                     inv_vp: Tensor, dev, n_chars: int | None = None) -> None:
+    """Raise unless the shade inputs are what the CUDA kernels take: one
+    character's, or with ``n_chars`` a crowd's (misc (C, 8), inv_vp (C, 4,
+    4))."""
     f32_args = {"knot_tab": shade_tables.knot_tab, "tex_tab": shade_tables.tex_tab,
                 "edge_tab": shade_tables.edge_tab, "ldir": lights.direction,
                 "lcol": lcol, "misc": misc, "inv_vp": inv_vp}
     for name, t in f32_args.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}")
-    if tuple(inv_vp.shape) != (4, 4) or tuple(lights.direction.shape) != (4, 3):
-        raise ValueError("inv_vp must be (4, 4) and light directions (4, 3)")
+    lead = () if n_chars is None else (n_chars,)
+    if (tuple(inv_vp.shape) != lead + (4, 4) or tuple(misc.shape) != lead + (8,)
+            or tuple(lights.direction.shape) != (4, 3)):
+        raise ValueError(f"inv_vp must be {lead + (4, 4)}, eye positions {lead + (3,)} and "
+                         "light directions (4, 3)")
     if (shade_tables.knot_tab.shape[1] != 3 * N_KNOTS or shade_tables.edge_tab.shape[1] != 3
             or not 4 <= shade_tables.tex_tab.shape[1] <= MAX_TEX_COLS
             or max(shade_tables.knot_tab.shape[0], shade_tables.tex_tab.shape[0],
@@ -289,30 +298,62 @@ def shade_stack(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity:
     if not stack.is_cuda:
         return shade_stack_twin(stack, shade_tables, lights, rim_intensity, eye_pos,
                                 inv_vp, use_mips=use_mips, lod_bias=lod_bias)
+    out = _launch_shade_stack(stack, shade_tables, lights, rim_intensity, eye_pos, inv_vp,
+                              use_mips, lod_bias, None)
+    shade_stack.launches += 1
+    return out
+
+
+shade_stack.launches = 0
+
+
+def shade_stack_crowd(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity: float,
+                      eye_pos: Tensor, inv_vp: Tensor, *, use_mips: bool = False,
+                      lod_bias: tuple[float, float] = (0.0, 0.0)) -> Tensor:
+    """A crowd's stacks (C, 2*L_CH, hp, wp), with each character's
+    ``eye_pos`` (C, 3) and ``inv_vp`` (C, 4, 4) -> (C, 2*O_CH, hp, wp) in
+    one launch of ``csrc/shade_stack.cu``; CPU tensors run
+    :func:`shade_stack_crowd_twin`."""
+    if not stack.is_cuda:
+        return shade_stack_crowd_twin(stack, shade_tables, lights, rim_intensity, eye_pos,
+                                      inv_vp, use_mips=use_mips, lod_bias=lod_bias)
+    out = _launch_shade_stack(stack, shade_tables, lights, rim_intensity, eye_pos, inv_vp,
+                              use_mips, lod_bias, stack.shape[0])
+    shade_stack_crowd.launches += 1
+    return out
+
+
+shade_stack_crowd.launches = 0
+
+
+def _launch_shade_stack(stack: Tensor, shade_tables: ShadeTables, lights,
+                        rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, use_mips: bool,
+                        lod_bias, n_chars: int | None) -> Tensor:
+    """Check the inputs and launch ``csrc/shade_stack.cu`` over one
+    character (``n_chars`` None) or a crowd of ``n_chars``."""
     dev = stack.device
     hp, wp = stack.shape[-2:]
+    lead = () if n_chars is None else (n_chars,)
+    # a contiguous crowd's stacks lie whole-tile multiples of 16 bytes apart
     if (stack.dtype != torch.float32 or not stack.is_contiguous()
-            or tuple(stack.shape) != (2 * L_CH, hp, wp)
+            or tuple(stack.shape) != lead + (2 * L_CH, hp, wp)
             or hp % STACK_TILE_H or wp % STACK_TILE_W or stack.data_ptr() % 16):
-        raise ValueError(f"stack: need a contiguous, 16-byte aligned float32 ({2 * L_CH}, hp, "
-                         f"wp) of whole 32x128 tiles, got {stack.dtype} {tuple(stack.shape)}")
+        raise ValueError(f"stack: need a contiguous, 16-byte aligned float32 "
+                         f"{lead + (2 * L_CH,)} + (hp, wp) of whole 32x128 tiles, got "
+                         f"{stack.dtype} {tuple(stack.shape)}")
     lcol, misc = shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
+    check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev, n_chars)
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
-    out = torch.empty((2 * O_CH, hp, wp), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (2 * O_CH, hp, wp), dtype=torch.float32, device=dev)
     err = cuda_lib.library().reze_shade_stack(
         stack.data_ptr(), shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
         shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
         shade_tables.tex_tab.shape[1], shade_tables.edge_tab.data_ptr(),
         shade_tables.edge_tab.shape[0], lights.direction.data_ptr(), lcol.data_ptr(),
         misc.data_ptr(), inv_vp.data_ptr(), out.data_ptr(), hp, wp, n_levels,
-        torch.cuda.current_stream(dev).cuda_stream)
+        n_chars or 1, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "reze_shade_stack")
-    shade_stack.launches += 1
     return out
-
-
-shade_stack.launches = 0
 
 
 def shade_stack_twin(stack: Tensor, shade_tables: ShadeTables, lights, rim_intensity: float,
@@ -339,3 +380,15 @@ def shade_stack_twin(stack: Tensor, shade_tables: ShadeTables, lights, rim_inten
                       wp, hp, n_levels)
     out = torch.stack(out).reshape(2 * O_CH, by, bx, th, tw).transpose(2, 3)
     return out.reshape(2 * O_CH, hp, wp)
+
+
+def shade_stack_crowd_twin(stack: Tensor, shade_tables: ShadeTables, lights,
+                           rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, *,
+                           use_mips: bool = False,
+                           lod_bias: tuple[float, float] = (0.0, 0.0)) -> Tensor:
+    """Plain torch version of :func:`shade_stack_crowd`: the twin per
+    character."""
+    return torch.stack([shade_stack_twin(stack[c], shade_tables, lights, rim_intensity,
+                                         eye_pos[c], inv_vp[c], use_mips=use_mips,
+                                         lod_bias=lod_bias)
+                        for c in range(stack.shape[0])])

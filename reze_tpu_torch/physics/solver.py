@@ -33,12 +33,20 @@ What differs is how the work is laid out, not what it computes:
   axes' multipliers together and sums ``sum_k n_k dlambda_k`` once. Both
   sides of a joint are gathered, transformed and scattered as one set of
   ``2n`` rows. The sums are the reference's, added in another order.
-* **Scatter-adds** use ``index_add_``, which adds every duplicate index
+* **Scatter-adds** use ``scatter_add_``, which adds every duplicate index
   as ``.at[].add`` does (on CUDA in no fixed order).
 * **The substep count** is read on the host once per frame, the step's
   only read back.
 * **Write-back** writes only the rows that pass the guard; bodies that
   fail it, or have no bone, write nothing.
+
+A crowd steps together: every state tensor and the bone pose carry a
+leading character axis (the model and :class:`Plan` are shared); gathers
+(``math3d.take_rows``) and scatters (:func:`_scatter_add`) take shared
+ids or each character's own contact pairs, and each character's substep
+count is its own: :func:`step` runs the crowd's largest count and keeps a
+character's state from its own count on, as ``jax.vmap`` of the
+reference's ``fori_loop`` does.
 
 Imports torch and numpy only.
 """
@@ -300,6 +308,20 @@ def _quad(x: Tensor, m: Tensor) -> Tensor:
     return torch.sum(x * _mv(m, x), dim=-1)
 
 
+def _table(parts: list[Tensor]) -> Tensor:
+    """Per-body columns (..., NB, k), the shared ones (NB, k) broadcast to
+    the characters' leading axes, side by side."""
+    lead = max((t.shape[:-2] for t in parts), key=len)
+    return torch.cat([t.expand(lead + t.shape[-2:]) for t in parts], -1)
+
+
+def _scatter_add(n_bodies: int, idx: Tensor, d: Tensor) -> Tensor:
+    """Per-body sums (..., NB, k) of the rows ``d`` (..., m, k) at ids
+    ``idx``, shared (m,) or per character (..., m)."""
+    out = torch.zeros(d.shape[:-2] + (n_bodies, d.shape[-1]), dtype=d.dtype, device=d.device)
+    return out.scatter_add_(-2, idx[..., None].expand(d.shape), d)
+
+
 # ---------------------------------------------------------------------------
 # Geometry
 # ---------------------------------------------------------------------------
@@ -340,7 +362,7 @@ def _inv_inertia_world(plan: Plan, quat: Tensor) -> Tensor:
     """R diag(I^-1) R^T per body (zero for bodies that are not dynamic, so
     joint corrections never rotate a kinematic anchor)."""
     r = m3.mat3_from_quat(quat)
-    return torch.sum((r * plan.inv_inertia[:, None, :])[:, :, None, :] * r[:, None, :, :], -1)
+    return torch.sum((r * plan.inv_inertia[:, None, :])[..., :, None, :] * r[..., None, :, :], -1)
 
 
 def _quat_add_rot(quat: Tensor, dw: Tensor) -> Tensor:
@@ -357,22 +379,22 @@ def _limit(x: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
 class _Frames(NamedTuple):
     """A joint slice's world frames at one state."""
 
-    body_pos: Tensor  # (2n, 3) body positions, A rows then B
-    r: Tensor  # (2n, 3) joint anchor less body position
-    axes: Tensor  # (n, 3, 3) row k: world direction of frame A's axis k
-    d_axes: Tensor  # (n, 3) B's anchor less A's, in frame A's axes
-    euler: Tensor  # (n, 3) ZXY euler of A's frame to B's
+    body_pos: Tensor  # (..., 2n, 3) body positions, A rows then B
+    r: Tensor  # (..., 2n, 3) joint anchor less body position
+    axes: Tensor  # (..., n, 3, 3) row k: world direction of frame A's axis k
+    d_axes: Tensor  # (..., n, 3) B's anchor less A's, in frame A's axes
+    euler: Tensor  # (..., n, 3) ZXY euler of A's frame to B's
 
 
 def _frames(js: JointSlice, rows: Tensor) -> _Frames:
     """Joint frames from gathered body rows ``[pos | quat | ...]``."""
     n = js.n
-    body_pos, body_quat = rows[:, 0:3], rows[:, 3:7]
+    body_pos, body_quat = rows[..., 0:3], rows[..., 3:7]
     p = body_pos + m3.quat_rotate(body_quat, js.local_pos)
     q = m3.quat_mul(body_quat, js.local_quat)
-    qa, qb = q[:n], q[n:]
+    qa, qb = q[..., :n, :], q[..., n:, :]
     axes = m3.mat3_from_quat(qa).transpose(-1, -2)
-    d_axes = _mv(axes, p[n:] - p[:n])
+    d_axes = _mv(axes, p[..., n:, :] - p[..., :n, :])
     euler = m3.quat_to_euler_zxy(m3.quat_mul(m3.quat_conj(qa), qb))
     return _Frames(body_pos, p - body_pos, axes, d_axes, euler)
 
@@ -380,27 +402,27 @@ def _frames(js: JointSlice, rows: Tensor) -> _Frames:
 def _joint_weights(js: JointSlice, fr: _Frames, w: Tensor, ii: Tensor) -> tuple[Tensor, Tensor]:
     """Generalized inverse masses of each axis: linear (wa + wb + both
     sides' (r x n) I^-1 (r x n)) and angular (n I^-1 n on both sides),
-    each (n, 3)."""
+    each (..., n, 3)."""
     n = js.n
-    axes2 = torch.cat([fr.axes, fr.axes])  # (2n, 3, 3)
-    rxn = _cross(fr.r[:, None, :], axes2)
-    lin = _quad(rxn, ii[:, None])
-    ang = _quad(axes2, ii[:, None])
-    w_lin = (w[:n] + w[n:])[:, None] + lin[:n] + lin[n:]
-    return w_lin, ang[:n] + ang[n:]
+    axes2 = torch.cat([fr.axes, fr.axes], -3)  # (..., 2n, 3, 3)
+    rxn = _cross(fr.r[..., :, None, :], axes2)
+    lin = _quad(rxn, ii.unsqueeze(-3))
+    ang = _quad(axes2, ii.unsqueeze(-3))
+    w_lin = (w[..., :n] + w[..., n:])[..., None] + lin[..., :n, :] + lin[..., n:, :]
+    return w_lin, ang[..., :n, :] + ang[..., n:, :]
 
 
 def _joint_apply(js: JointSlice, fr: _Frames, w: Tensor, ii: Tensor, dlam_lin: Tensor,
                  dlam_ang: Tensor, n_bodies: int) -> Tensor:
-    """Per-body (NB, 6) [linear | angular] corrections of a slice from its
-    per-axis multipliers: linear impulse P = sum_k n_k dlam_lin_k on B (-P
-    on A), angular impulse T = sum_k n_k dlam_ang_k."""
-    p_imp = torch.sum(fr.axes * dlam_lin[:, :, None], dim=1)
-    t_imp = torch.sum(fr.axes * dlam_ang[:, :, None], dim=1)
-    p2 = torch.cat([-p_imp, p_imp])
-    t2 = torch.cat([-t_imp, t_imp])
-    d = torch.cat([p2 * w[:, None], _mv(ii, _cross(fr.r, p2) + t2)], dim=1)
-    return torch.zeros((n_bodies, 6), dtype=d.dtype, device=d.device).index_add_(0, js.ab, d)
+    """Per-body (..., NB, 6) [linear | angular] corrections of a slice from
+    its per-axis multipliers: linear impulse P = sum_k n_k dlam_lin_k on B
+    (-P on A), angular impulse T = sum_k n_k dlam_ang_k."""
+    p_imp = torch.sum(fr.axes * dlam_lin[..., :, :, None], dim=-2)
+    t_imp = torch.sum(fr.axes * dlam_ang[..., :, :, None], dim=-2)
+    p2 = torch.cat([-p_imp, p_imp], -2)
+    t2 = torch.cat([-t_imp, t_imp], -2)
+    d = torch.cat([p2 * w[..., None], _mv(ii, _cross(fr.r, p2) + t2)], dim=-1)
+    return _scatter_add(n_bodies, js.ab, d)
 
 
 def _joint_violations(js: JointSlice, pos: Tensor, quat: Tensor) -> tuple[Tensor, Tensor]:
@@ -408,7 +430,7 @@ def _joint_violations(js: JointSlice, pos: Tensor, quat: Tensor) -> tuple[Tensor
     A's axes, angular (n, 3) ZXY euler beyond [min, max]). They set the
     substep's stop-ERP slack: Bullet corrects only ``physics_stop_erp`` of
     a violation per step."""
-    fr = _frames(js, torch.cat([pos, quat], 1)[js.ab])
+    fr = _frames(js, m3.take_rows(torch.cat([pos, quat], -1), js.ab))
     return _limit(fr.d_axes, js.lin_min, js.lin_max), _limit(fr.euler, js.ang_min, js.ang_max)
 
 
@@ -429,10 +451,10 @@ def _solve_joints_slice(plan: Plan, js: JointSlice, pos: Tensor, quat: Tensor, i
     linear and angular axis, and its spring solve where the model has
     springs, all from the slice-start state. ``ii_w`` is the
     iteration-start world inverse inertia (lagged within the iteration)."""
-    nb = pos.shape[0]
-    tab = torch.cat([pos, quat, plan.inv_mass[:, None], ii_w.reshape(nb, 9)], 1)
-    rows = tab[js.ab]
-    w, ii = rows[:, 7], rows[:, 8:17].reshape(-1, 3, 3)
+    nb = pos.shape[-2]
+    tab = _table([pos, quat, plan.inv_mass[:, None], ii_w.flatten(-2)])
+    rows = m3.take_rows(tab, js.ab)
+    w, ii = rows[..., 7], rows[..., 8:17].unflatten(-1, (3, 3))
     fr = _frames(js, rows)
     w_lin, w_ang = _joint_weights(js, fr, w, ii)
 
@@ -449,7 +471,7 @@ def _solve_joints_slice(plan: Plan, js: JointSlice, pos: Tensor, quat: Tensor, i
         dlam_ang = dlam_ang + _dlam(torch.where(js.ang_spring, fr.euler, 0.0), w_ang,
                                     js.ang_alpha)
     d = _joint_apply(js, fr, w, ii, dlam_lin, dlam_ang, nb)
-    return pos + d[:, :3], _quat_add_rot(quat, d[:, 3:])
+    return pos + d[..., :3], _quat_add_rot(quat, d[..., 3:])
 
 
 def _joint_velocity_slice(plan: Plan, js: JointSlice, vel: Tensor, ang: Tensor, pos: Tensor,
@@ -457,12 +479,12 @@ def _joint_velocity_slice(plan: Plan, js: JointSlice, vel: Tensor, ang: Tensor, 
     """Bullet's velocity-level row solve for one colour: zero the relative
     velocity along every locked axis, and along every limit axis where it
     moves deeper into the violation. Springs are left alone."""
-    nb = pos.shape[0]
+    nb = pos.shape[-2]
     n = js.n
-    tab = torch.cat([pos, quat, plan.inv_mass[:, None], ii_w.reshape(nb, 9), vel, ang], 1)
-    rows = tab[js.ab]
-    w, ii = rows[:, 7], rows[:, 8:17].reshape(-1, 3, 3)
-    v_body, o_body = rows[:, 17:20], rows[:, 20:23]
+    tab = _table([pos, quat, plan.inv_mass[:, None], ii_w.flatten(-2), vel, ang])
+    rows = m3.take_rows(tab, js.ab)
+    w, ii = rows[..., 7], rows[..., 8:17].unflatten(-1, (3, 3))
+    v_body, o_body = rows[..., 17:20], rows[..., 20:23]
     fr = _frames(js, rows)
     w_lin, w_ang = _joint_weights(js, fr, w, ii)
 
@@ -471,87 +493,95 @@ def _joint_velocity_slice(plan: Plan, js: JointSlice, vel: Tensor, ang: Tensor, 
         return torch.where(active & (w_sum > 0), -un / torch.clamp(w_sum, min=1e-9), 0.0)
 
     u = v_body + _cross(o_body, fr.r)
-    un_lin = _mv(fr.axes, u[n:] - u[:n])
-    un_ang = _mv(fr.axes, o_body[n:] - o_body[:n])
+    un_lin = _mv(fr.axes, u[..., n:, :] - u[..., :n, :])
+    un_ang = _mv(fr.axes, o_body[..., n:, :] - o_body[..., :n, :])
     dlam_lin = stop(un_lin, fr.d_axes, js.lin_min, js.lin_max, js.lin_locked, w_lin)
     dlam_ang = stop(un_ang, fr.euler, js.ang_min, js.ang_max, js.ang_locked, w_ang)
     d = _joint_apply(js, fr, w, ii, dlam_lin, dlam_ang, nb)
-    return vel + d[:, :3], ang + d[:, 3:]
+    return vel + d[..., :3], ang + d[..., 3:]
 
 
 def _select_active_contacts(plan: Plan, pos: Tensor, quat: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """Once per substep: narrow-phase every candidate pair, keep the
     ``n_active`` deepest (a stable descending sort: equal scores keep the
     lower pair index first, as ``jax.lax.top_k``), and count the
-    penetrating pairs the cap dropped -> (i, j, dropped)."""
+    penetrating pairs the cap dropped -> (i, j, dropped), each character's
+    own along its leading axes."""
     a0, a1, ra = _shape_segment(plan, pos, quat)
-    seg = torch.cat([a0, a1, ra[:, None]], 1)
-    s = seg[torch.cat([plan.pair_i, plan.pair_j])]
-    si, sj = s[:plan.pair_i.shape[0]], s[plan.pair_i.shape[0]:]
-    c1, c2 = _closest_segment_segment(si[:, 0:3], si[:, 3:6], sj[:, 0:3], sj[:, 3:6])
-    score = (si[:, 6] + sj[:, 6]) - torch.linalg.norm(c2 - c1, dim=-1)
+    seg = _table([a0, a1, ra[:, None]])
+    n_pairs = plan.pair_i.shape[0]
+    s = seg[..., torch.cat([plan.pair_i, plan.pair_j]), :]
+    si, sj = s[..., :n_pairs, :], s[..., n_pairs:, :]
+    c1, c2 = _closest_segment_segment(si[..., 0:3], si[..., 3:6], sj[..., 0:3], sj[..., 3:6])
+    score = (si[..., 6] + sj[..., 6]) - torch.linalg.norm(c2 - c1, dim=-1)
     n_active = plan.tables.n_active
-    top = torch.sort(score, descending=True, stable=True).indices[:n_active]
-    dropped = torch.clamp(torch.sum(score > 0.0) - n_active, min=0)
+    top = torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :n_active]
+    dropped = torch.clamp(torch.sum(score > 0.0, dim=-1) - n_active, min=0)
     return plan.pair_i[top], plan.pair_j[top], dropped
 
 
 class _Contacts(NamedTuple):
     """The active pairs' geometry at one state (pair i to pair j)."""
 
-    rows: Tensor  # (2P, C) gathered body rows, the i side then the j side
-    n: Tensor  # (P, 3) unit normal from i to j (0 when the points coincide)
-    pen: Tensor  # (P,) penetration depth (> 0: touching)
-    r: Tensor  # (2P, 3) contact point less body position, i side then j
+    rows: Tensor  # (..., 2P, k) gathered body rows, the i side then the j side
+    n: Tensor  # (..., P, 3) unit normal from i to j (0 when the points coincide)
+    pen: Tensor  # (..., P) penetration depth (> 0: touching)
+    r: Tensor  # (..., 2P, 3) contact point less body position, i side then j
 
 
 def _contacts(plan: Plan, ij: Tensor, pos: Tensor, quat: Tensor, extra: list[Tensor]) -> _Contacts:
     """Gather ``[p0 | p1 | radius | pos | extra...]`` rows for both sides
     of the pairs ``ij`` (i then j) and find their contact points."""
     a0, a1, rad = _shape_segment(plan, pos, quat)
-    rows = torch.cat([a0, a1, rad[:, None], pos] + extra, 1)[ij]
-    p = ij.shape[0] // 2
-    ri_, rj_ = rows[:p], rows[p:]
-    c1, c2 = _closest_segment_segment(ri_[:, 0:3], ri_[:, 3:6], rj_[:, 0:3], rj_[:, 3:6])
+    rows = m3.take_rows(_table([a0, a1, rad[:, None], pos] + extra), ij)
+    p = ij.shape[-1] // 2
+    ri_, rj_ = rows[..., :p, :], rows[..., p:, :]
+    c1, c2 = _closest_segment_segment(ri_[..., 0:3], ri_[..., 3:6], rj_[..., 0:3],
+                                      rj_[..., 3:6])
     delta = c2 - c1
     dist = torch.linalg.norm(delta, dim=-1)
-    r_i, r_j = ri_[:, 6], rj_[:, 6]
-    n = delta / torch.clamp(dist, min=1e-8)[:, None]
-    r = torch.cat([c1 + n * r_i[:, None], c2 - n * r_j[:, None]]) - rows[:, 7:10]
+    r_i, r_j = ri_[..., 6], rj_[..., 6]
+    n = delta / torch.clamp(dist, min=1e-8)[..., None]
+    r = (torch.cat([c1 + n * r_i[..., None], c2 - n * r_j[..., None]], -2)
+         - rows[..., 7:10])
     return _Contacts(rows, n, (r_i + r_j) - dist, r)
 
 
 def _contact_impulse(ij: Tensor, ct: _Contacts, imp: Tensor, w: Tensor, ii: Tensor,
                      n_bodies: int) -> Tensor:
-    """Per-body (NB, 6) corrections of the impulses ``imp`` (P, 3) applied
-    +imp to each pair's j body and -imp to its i body."""
-    imp2 = torch.cat([-imp, imp])
-    d = torch.cat([imp2 * w[:, None], _mv(ii, _cross(ct.r, imp2))], 1)
-    return torch.zeros((n_bodies, 6), dtype=d.dtype, device=d.device).index_add_(0, ij, d)
+    """Per-body (..., NB, 6) corrections of the impulses ``imp`` (..., P,
+    3) applied +imp to each pair's j body and -imp to its i body."""
+    imp2 = torch.cat([-imp, imp], -2)
+    d = torch.cat([imp2 * w[..., None], _mv(ii, _cross(ct.r, imp2))], -1)
+    return _scatter_add(n_bodies, ij, d)
 
 
 def _w_along(ct: _Contacts, w: Tensor, ii: Tensor, dirv: Tensor) -> Tensor:
-    """Generalized inverse mass of each pair along ``dirv`` (P, ..., 3)."""
-    p = ct.n.shape[0]
-    extra = (None,) * (dirv.dim() - 2)
-    rx = _cross(ct.r[(slice(None),) + extra], torch.cat([dirv, dirv]))
-    q = _quad(rx, ii[(slice(None),) + extra])
-    return (w[:p] + w[p:])[(slice(None),) + extra] + q[:p] + q[p:]
+    """Generalized inverse mass of each pair along ``dirv``: (..., P, 3), or
+    (..., P, K, 3) for K directions per pair."""
+    p = ct.n.shape[-2]
+    k = dirv.dim() - ct.n.dim()
+    r, ii_, ws = ct.r, ii, w[..., :p] + w[..., p:]
+    for _ in range(k):
+        r, ii_, ws = r.unsqueeze(-2), ii_.unsqueeze(-3), ws[..., None]
+    rx = _cross(r, torch.cat([dirv, dirv], -2 - k))
+    q = _quad(rx, ii_)
+    return ws + q.narrow(-1 - k, 0, p) + q.narrow(-1 - k, p, p)
 
 
 def _solve_contacts(plan: Plan, ij: Tensor, pos: Tensor, quat: Tensor,
                    ii_w: Tensor) -> tuple[Tensor, Tensor]:
     """One under-relaxed Jacobi iteration of non-penetration over the
     substep's active pairs ``ij`` (i then j)."""
-    nb = pos.shape[0]
-    ct = _contacts(plan, ij, pos, quat, [plan.inv_mass[:, None], ii_w.reshape(nb, 9)])
-    w, ii = ct.rows[:, 10], ct.rows[:, 11:20].reshape(-1, 3, 3)
+    nb = pos.shape[-2]
+    ct = _contacts(plan, ij, pos, quat, [plan.inv_mass[:, None], ii_w.flatten(-2)])
+    w, ii = ct.rows[..., 10], ct.rows[..., 11:20].unflatten(-1, (3, 3))
     w_sum = _w_along(ct, w, ii, ct.n)
     dlam = torch.where((ct.pen > 0.0) & (w_sum > 0),
                        ct.pen / torch.clamp(w_sum, min=1e-9), 0.0) * _CONTACT_RELAX
     # push i along -n and j along +n
-    d = _contact_impulse(ij, ct, ct.n * dlam[:, None], w, ii, nb)
-    return pos + d[:, :3], _quat_add_rot(quat, d[:, 3:])
+    d = _contact_impulse(ij, ct, ct.n * dlam[..., None], w, ii, nb)
+    return pos + d[..., :3], _quat_add_rot(quat, d[..., 3:])
 
 
 def _contact_velocity_pass(plan: Plan, ij: Tensor, pos: Tensor, quat: Tensor, lin_vel: Tensor,
@@ -561,49 +591,49 @@ def _contact_velocity_pass(plan: Plan, ij: Tensor, pos: Tensor, quat: Tensor, li
     velocity change is capped at mu * J_n, J_n from this substep's
     penetration correction; the pre-solve approach velocity is reflected
     by the combined restitution above the 2|g|h resting threshold."""
-    nb = pos.shape[0]
+    nb = pos.shape[-2]
     ct = _contacts(plan, ij, pos, quat, [
-        plan.inv_mass[:, None], ii_w.reshape(nb, 9), lin_vel, ang_vel, pre_lin, pre_ang,
+        plan.inv_mass[:, None], ii_w.flatten(-2), lin_vel, ang_vel, pre_lin, pre_ang,
         plan.friction[:, None], plan.restitution[:, None]])
-    rows, p = ct.rows, ct.n.shape[0]
-    w, ii = rows[:, 10], rows[:, 11:20].reshape(-1, 3, 3)
+    rows, p = ct.rows, ct.n.shape[-2]
+    w, ii = rows[..., 10], rows[..., 11:20].unflatten(-1, (3, 3))
     active = ct.pen > 0.0
     h = plan.h
 
     def rel(lin, ang):
         v = lin + _cross(ang, ct.r)
-        return v[p:] - v[:p]
+        return v[..., p:, :] - v[..., :p, :]
 
     # relative velocity of j against i at the contact (> 0 along n: apart)
-    v_rel = rel(rows[:, 20:23], rows[:, 23:26])
+    v_rel = rel(rows[..., 20:23], rows[..., 23:26])
     v_n = torch.sum(v_rel * ct.n, dim=-1)
-    v_t = v_rel - ct.n * v_n[:, None]
+    v_t = v_rel - ct.n * v_n[..., None]
     vt_mag = torch.linalg.norm(v_t, dim=-1)
-    t_hat = v_t / torch.clamp(vt_mag, min=1e-9)[:, None]
-    w_nt = _w_along(ct, w, ii, torch.stack([ct.n, t_hat], 1))
-    w_n, w_t = w_nt[:, 0], w_nt[:, 1]
+    t_hat = v_t / torch.clamp(vt_mag, min=1e-9)[..., None]
+    w_nt = _w_along(ct, w, ii, torch.stack([ct.n, t_hat], -2))
+    w_n, w_t = w_nt[..., 0], w_nt[..., 1]
 
     # friction: |dv_t| <= mu * lambda_n / h (Bullet: friction multiplied)
     lam_n = torch.where(active & (w_n > 0),
                         ct.pen * _CONTACT_RELAX / torch.clamp(w_n, min=1e-9), 0.0)
-    mu = rows[:p, 32] * rows[p:, 32]
+    mu = rows[..., :p, 32] * rows[..., p:, 32]
     dv_cap = mu * lam_n / torch.clamp(h, min=1e-9) * w_t
     dv_t = torch.minimum(vt_mag, dv_cap)
     ok_t = active & (w_t > 0) & (vt_mag > 1e-9)
     dlam_t = torch.where(ok_t, dv_t / torch.clamp(w_t, min=1e-9), 0.0)
 
     # restitution: reflect the pre-solve approach velocity
-    v_n0 = torch.sum(rel(rows[:, 26:29], rows[:, 29:32]) * ct.n, dim=-1)
-    e = rows[:p, 33] * rows[p:, 33]
+    v_n0 = torch.sum(rel(rows[..., 26:29], rows[..., 29:32]) * ct.n, dim=-1)
+    e = rows[..., :p, 33] * rows[..., p:, 33]
     thr = 2.0 * plan.g_mag * h
     want = torch.where(v_n0 < -thr, -e * v_n0, 0.0)
     dv_n = torch.clamp(want - v_n, min=0.0)
     ok_n = active & (w_n > 0) & (e > 0.0)
     dlam_n = torch.where(ok_n, dv_n / torch.clamp(w_n, min=1e-9), 0.0)
 
-    imp = -t_hat * dlam_t[:, None] + ct.n * dlam_n[:, None]
+    imp = -t_hat * dlam_t[..., None] + ct.n * dlam_n[..., None]
     d = _contact_impulse(ij, ct, imp, w, ii, nb)
-    return lin_vel + d[:, :3], ang_vel + d[:, 3:]
+    return lin_vel + d[..., :3], ang_vel + d[..., 3:]
 
 
 # ---------------------------------------------------------------------------
@@ -616,8 +646,8 @@ def bodies_from_bones(pm: PhysicsModel, wq: Tensor, wp: Tensor) -> tuple[Tensor,
     without a bone stay at their offset."""
     bi = torch.clamp(pm.bone_index, min=0)
     has = (pm.bone_index >= 0)[:, None]
-    bq = m3.quat_mul(wq[bi], pm.body_offset_quat)
-    bp = wp[bi] + m3.quat_rotate(wq[bi], pm.body_offset_pos)
+    bq = m3.quat_mul(wq[..., bi, :], pm.body_offset_quat)
+    bp = wp[..., bi, :] + m3.quat_rotate(wq[..., bi, :], pm.body_offset_pos)
     return (torch.where(has, bq, pm.body_offset_quat),
             torch.where(has, bp, pm.body_offset_pos))
 
@@ -634,7 +664,7 @@ def substep(plan: Plan, pos: Tensor, quat: Tensor, lin_vel: Tensor, ang_vel: Ten
 
     act_i, act_j, dropped = _select_active_contacts(plan, p1, q1)
     overflow = torch.maximum(overflow, dropped)
-    ij = torch.cat([act_i, act_j])
+    ij = torch.cat([act_i, act_j], -1)
 
     # stop-ERP slack, measured once from the integrated state for every
     # joint at once (each slice reads the same state)
@@ -645,7 +675,7 @@ def substep(plan: Plan, pos: Tensor, quat: Tensor, lin_vel: Tensor, ang_vel: Ten
         v_lin, v_ang = (1.0 - erp) * v_lin, (1.0 - erp) * v_ang
         slacks, start = [], 0
         for js in plan.slices:
-            slacks.append((v_lin[start:start + js.n], v_ang[start:start + js.n]))
+            slacks.append((v_lin[..., start:start + js.n, :], v_ang[..., start:start + js.n, :]))
             start += js.n
 
     p2, q2 = p1, q1
@@ -658,7 +688,7 @@ def substep(plan: Plan, pos: Tensor, quat: Tensor, lin_vel: Tensor, ang_vel: Ten
     # velocities from positions
     v2 = torch.where(dyn, (p2 - pos) / h, v)
     dq = m3.quat_mul(q2, m3.quat_conj(quat))
-    w2 = torch.where(dyn, 2.0 * dq[:, :3] / h * torch.sign(dq[:, 3:4]), w)
+    w2 = torch.where(dyn, 2.0 * dq[..., :3] / h * torch.sign(dq[..., 3:4]), w)
     # joint velocity stop, then contact friction and restitution
     ii2 = _inv_inertia_world(plan, q2)
     v2s, w2s = v2, w2
@@ -672,14 +702,16 @@ def substep(plan: Plan, pos: Tensor, quat: Tensor, lin_vel: Tensor, ang_vel: Ten
 
 def step(plan: Plan, state: PhysicsState, dt: Tensor, wq: Tensor,
          wp: Tensor) -> tuple[Tensor, Tensor, PhysicsState, Tensor]:
-    """Advance the bodies by ``dt`` -> (bone world rotations (J, 4) and
-    positions (J, 3) with the dynamic bodies written back, new state,
-    contact overflow ()).
+    """Advance the bodies by ``dt`` -> (bone world rotations (..., J, 4) and
+    positions (..., J, 3) with the dynamic bodies written back, new state,
+    contact overflow (...)); a crowd's state and pose carry a leading
+    character axis.
 
-    Reads the substep count on the host, the only read back of a step."""
+    Reads the (largest) substep count on the host, the only read back of a
+    step."""
     cfg, pm, h = plan.cfg, plan.pm, plan.h
     init_q, init_p = bodies_from_bones(pm, wq, wp)
-    fresh = ~state.initialized
+    fresh = ~state.initialized[..., None, None]
     pos = torch.where(fresh, init_p, state.position)
     quat = torch.where(fresh, init_q, state.quat)
     lin_vel = torch.where(fresh, 0.0, state.lin_vel)
@@ -697,9 +729,15 @@ def step(plan: Plan, state: PhysicsState, dt: Tensor, wq: Tensor,
     accum = accum - n_total.to(torch.float32) * h
     n_sub = torch.clamp(n_total, max=cfg.physics_max_substeps)
 
-    carry = (pos, quat, lin_vel, ang_vel, torch.zeros((), dtype=torch.int64, device=pos.device))
-    for _ in range(int(n_sub)):
-        carry = substep(plan, *carry)
+    carry = (pos, quat, lin_vel, ang_vel,
+             torch.zeros(n_sub.shape, dtype=torch.int64, device=pos.device))
+    for i in range(int(n_sub.max())):
+        new = substep(plan, *carry)
+        if n_sub.dim():  # a crowd: a character past its own count keeps its state
+            live = i < n_sub
+            new = tuple(torch.where(live.view(live.shape + (1,) * (x.dim() - live.dim())), x, y)
+                        for x, y in zip(new, carry))
+        carry = new
     pos, quat, lin_vel, ang_vel, overflow = carry
 
     # dynamic bodies back to their bones, bone = body x offset^-1, where
@@ -708,12 +746,13 @@ def step(plan: Plan, state: PhysicsState, dt: Tensor, wq: Tensor,
     bone_p = pos - m3.quat_rotate(bone_q, pm.body_offset_pos)
     ok = (plan.writable & torch.all(torch.isfinite(bone_p), dim=-1)
           & (torch.amax(torch.abs(bone_p), dim=-1) < 1e6))
-    n_bones = wq.shape[0]
+    lead, n_bones = wq.shape[:-2], wq.shape[-2]
     dest = torch.where(ok, pm.bone_index, n_bones)  # the rest write a spare row
-    bones = torch.cat([torch.cat([wq, wp], 1), wq.new_zeros((1, 7))])
-    bones = bones.index_copy_(0, dest, torch.cat([bone_q, bone_p], 1))[:n_bones]
+    bones = torch.cat([torch.cat([wq, wp], -1), wq.new_zeros(lead + (1, 7))], -2)
+    src = torch.cat([bone_q, bone_p], -1)
+    bones = bones.scatter_(-2, dest[..., None].expand(src.shape), src)[..., :n_bones, :]
 
     new_state = PhysicsState(position=pos, quat=quat, lin_vel=lin_vel, ang_vel=ang_vel,
                              initialized=torch.ones_like(state.initialized),
                              time_accum=accum)
-    return bones[:, :4], bones[:, 4:], new_state, overflow
+    return bones[..., :4], bones[..., 4:], new_state, overflow

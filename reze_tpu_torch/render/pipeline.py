@@ -28,7 +28,9 @@ def _gather_pass(model: ModelArrays, pos: Tensor, nrm: Tensor, view_proj: Tensor
                  uvs: Tensor | None = None) -> _PassData:
     """The draw class's padded triangle slice, projected to clip space.
     Outline passes draw the MMD inverted hull: corners pushed out along the
-    skinned normal by ``edge_size * outline_scale``."""
+    skinned normal by ``edge_size * outline_scale``. A crowd's ``pos``,
+    ``nrm``, ``uvs`` and ``view_proj`` carry a leading character axis, and
+    so do the corners it returns."""
     geom = model.geometry
     if outline:
         ranges, tris_all, mats_all = (geom.outline_class_ranges, geom.outline_tris,
@@ -40,9 +42,9 @@ def _gather_pass(model: ModelArrays, pos: Tensor, nrm: Tensor, view_proj: Tensor
     tri_mat = mats_all[start:start + padded]
     valid = torch.arange(padded, device=tris.device) < count
 
-    c_pos = pos[tris]
-    c_nrm = nrm[tris]
-    c_uv = (geom.uvs if uvs is None else uvs)[tris]
+    c_pos = pos[..., tris, :]
+    c_nrm = nrm[..., tris, :]
+    c_uv = (geom.uvs if uvs is None else uvs)[..., tris, :]
     if outline:
         edge = model.materials.edge_size[tri_mat][:, None, None]
         c_pos = c_pos + c_nrm * (edge * outline_scale)

@@ -15,6 +15,11 @@
   with ``cfg.msaa_samples`` samples, never reads ``cfg.rasterizer``, and
   on the non-layered branch samples level 0 nearest and skips material
   morphs.
+* :func:`render_crowd_mega`, the crowd's megakernel path: the same table
+  build with a leading character axis on every tensor, then one launch
+  over the whole crowd of the frame kernel (``"group"``) or of the stream
+  kernel, the compose and the stack shade (``"stream"``); then one
+  composite launch and the bloom finish over (C, 3, h, w).
 """
 
 from __future__ import annotations
@@ -99,12 +104,12 @@ def _pass_parts(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
                             cfg.outline_scale, uvs)
         t = data.valid.shape[0]
         tri = raster.setup_triangles(data.corners_clip, data.valid, dims.wp, dims.hp, cull)
-        cols = tables.push_tab[torch.clamp(data.tri_mat, min=0)]  # (T, 7)
-        alpha = cols[:, 1] if outline else cols[:, 0]
+        cols = tables.push_tab[..., torch.clamp(data.tri_mat, min=0), :]  # (..., T, 7)
+        alpha = cols[..., 1] if outline else cols[..., 0]
         cap = -(-int(t * cfg.pair_cap_scale + 1024) // FG.CHUNK) * FG.CHUNK
         parts.append(FG.pack_pass_part(
-            tri, data.corner_uv, data.corner_nrm, alpha, cols[:, 2], cols[:, 4],
-            cols[:, 5], cols[:, 6], by, bx, cap, with_attrs=not outline))
+            tri, data.corner_uv, data.corner_nrm, alpha, cols[..., 2], cols[..., 4],
+            cols[..., 5], cols[..., 6], by, bx, cap, with_attrs=not outline))
     return parts
 
 
@@ -128,13 +133,14 @@ def _build_stream_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
 
 def _apply_mat_mod(tables: SG.ShadeTables, mat_mod) -> SG.ShadeTables:
     """Material-morph factors: alpha' = clip(alpha * scale + add, 0, 1),
-    the same for edge alpha."""
+    the same for edge alpha. A crowd's (C, M) factors give each character
+    its own push table, (C, M, 7)."""
     if mat_mod is None:
         return tables
     a_scale, a_add, e_scale, e_add = mat_mod
-    tab = tables.push_tab.clone()
-    tab[:, 0] = torch.clamp(tab[:, 0] * a_scale + a_add, 0.0, 1.0)
-    tab[:, 1] = torch.clamp(tab[:, 1] * e_scale + e_add, 0.0, 1.0)
+    tab = tables.push_tab.expand(a_scale.shape[:-1] + tables.push_tab.shape).clone()
+    tab[..., 0] = torch.clamp(tab[..., 0] * a_scale + a_add, 0.0, 1.0)
+    tab[..., 1] = torch.clamp(tab[..., 1] * e_scale + e_add, 0.0, 1.0)
     return tables._replace(push_tab=tab)
 
 
@@ -142,19 +148,22 @@ def _composite_shaded_kernel(o: Tensor, atlas_flat: Tensor, dims: FastDims,
                              cfg: EngineConfig) -> Tensor:
     """Composite kernel, then the bloom finish in plain torch: horizontal
     half of the 2x2 box, threshold extract, 5-tap blur, 2x upsample, add,
-    clip. -> (H, W, 3)."""
-    img_cf, half = CG.composite(o, atlas_flat, half0=cfg.albedo_half_occluded,
-                                half1=cfg.albedo_half_visible,
-                                with_bloom=cfg.enable_bloom)
-    img_cf = img_cf[:, :dims.height, :dims.width]
+    clip. -> (H, W, 3); a crowd's o (C, 2*O_CH, hp, wp) goes through one
+    composite launch and gives (C, H, W, 3)."""
+    kw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
+              with_bloom=cfg.enable_bloom)
+    img_cf, half = (CG.composite_crowd if o.dim() == 4 else CG.composite)(o, atlas_flat, **kw)
+    lead = o.shape[:-3]
+    y, x = len(lead) + 1, len(lead) + 2  # the row and column axes
+    img_cf = img_cf[..., :dims.height, :dims.width]
     if cfg.enable_bloom:
-        vm = half[:, :dims.height // 2, :dims.width]
-        hm = vm.reshape(3, dims.height // 2, dims.width // 2, 2).mean(-1)
+        vm = half[..., :dims.height // 2, :dims.width]
+        hm = vm.reshape(lead + (3, dims.height // 2, dims.width // 2, 2)).mean(-1)
         bloom = post.extract(hm, cfg.bloom_threshold)
-        bloom = post._blur_axis(post._blur_axis(bloom, 2), 1)
-        up = post._up2_axis(post._up2_axis(bloom, 1), 2)
+        bloom = post._blur_axis(post._blur_axis(bloom, x), y)
+        up = post._up2_axis(post._up2_axis(bloom, y), x)
         img_cf = img_cf + up * cfg.bloom_intensity
-    return torch.clamp(img_cf, 0.0, 1.0).permute(1, 2, 0)
+    return torch.clamp(img_cf, 0.0, 1.0).movedim(-3, -1)
 
 
 def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
@@ -169,7 +178,7 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     if cfg.albedo_bilinear:
         raise NotImplementedError(
             "the megakernel path with bilinear albedo needs the quad composite, which "
-            "is not ported (ROADMAP queue 1, item 7)")
+            "is not ported (ROADMAP queue 1, item 6)")
     inv_vp = m3.mat4_inverse(view_proj).contiguous()
     tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
         model.materials, model.atlas)
@@ -201,6 +210,53 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
     img = _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg)
     return img, overflow
+
+
+def render_crowd_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
+                      pos: Tensor, nrm: Tensor, view_proj: Tensor, eye_pos: Tensor,
+                      lights: Lights, uvs: Tensor | None = None, mat_mod=None,
+                      shade_tables: SG.ShadeTables | None = None
+                      ) -> tuple[Tensor, Tensor]:
+    """A crowd's frames through one launch of each kernel, as the reference
+    routes it (``pipeline_tpu.render_crowd_mega``): ``pos``, ``nrm`` (C, V,
+    3), ``view_proj`` (C, 4, 4), ``eye_pos`` (C, 3) and, when given,
+    ``uvs`` (C, V, 2) and the material-morph factors (C, M) per character
+    -> (frames (C, H, W, 3), pair_overflow (C,)). ``"stream"`` runs the
+    stream kernel, the compose and the stack shade; every other rasterizer
+    but ``"hybrid"`` runs the frame kernel, ``"mxu"`` included, as in the
+    reference. Each character's pair tables take its own material-morph
+    alphas; the kernels shade with the shared tables."""
+    if cfg.albedo_bilinear:
+        raise NotImplementedError(
+            "the crowd with bilinear albedo needs the quad composite, which is not ported "
+            "(ROADMAP queue 1, item 6)")
+    if cfg.rasterizer == "hybrid":
+        raise NotImplementedError(
+            "the crowd on the hybrid kernel needs its batched mode, which is not ported "
+            "(ROADMAP queue 2, row B5)")
+    inv_vp = m3.mat4_inverse(view_proj).contiguous()
+    tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
+        model.materials, model.atlas)
+    pushed = _apply_mat_mod(tables, mat_mod)
+    use_mips, lod_bias = _mip_args(cfg, model)
+    skw = dict(use_mips=use_mips, lod_bias=lod_bias)
+    shade_args = (tables, lights, cfg.rim_light_intensity, eye_pos.contiguous(), inv_vp)
+    if cfg.rasterizer == "stream":
+        st = _build_stream_tables(model, cfg, dims, pushed, pos, nrm, view_proj, uvs)
+        raw = FS.render_megakernel_stream_crowd(st, hp=dims.hp, wp=dims.wp,
+                                                n_samples=cfg.msaa_samples)
+        stack = FS.compose_stream_state(raw, cfg.msaa_samples)
+        shaded = SG.shade_stack_crowd(stack, *shade_args, **skw)
+        overflow = st.overflow
+    else:
+        ft = _build_group_tables(model, cfg, dims, pushed, pos, nrm, view_proj, uvs)
+        analytic = cfg.msaa_mode == "analytic"
+        shaded = FG.render_megakernel_crowd(
+            ft, *shade_args, hp=dims.hp, wp=dims.wp,
+            n_samples=1 if analytic else cfg.msaa_samples, analytic=analytic, **skw)
+        overflow = ft.overflow
+    flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
+    return _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg), overflow
 
 
 def pass_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims, pos: Tensor,

@@ -1,6 +1,7 @@
 """Screen-space triangle setup (counterpart of the setup half of
 ``reze_tpu/render/raster.py``): clip -> screen, cull, edge planes that are
->= 0 inside, perspective 1/w."""
+>= 0 inside, perspective 1/w. Tensors may carry a leading (character)
+axis before the triangle axis."""
 
 from __future__ import annotations
 
@@ -36,11 +37,14 @@ class TriSetup(NamedTuple):
 
 
 def project_corners(corners_world: Tensor, view_proj: Tensor) -> Tensor:
-    """(T, 3, 3) world corners -> (T, 3, 4) clip coordinates."""
-    ones = torch.ones(corners_world.shape[:-1] + (1,), dtype=corners_world.dtype,
-                      device=corners_world.device)
-    hom = torch.cat([corners_world, ones], dim=-1)
-    return torch.einsum("ij,tcj->tci", view_proj, hom)
+    """(..., T, 3, 3) world corners -> (..., T, 3, 4) clip coordinates; a
+    crowd's (C, 4, 4) ``view_proj`` projects each character's own. Each
+    coordinate is summed in one fixed order, ((x + y) + z) + w: a matrix
+    product may sum in another order for another batch size, and then a
+    crowd's corners would differ in the last bit from its characters' own."""
+    vp = view_proj[..., None, None, :, :]
+    p = corners_world[..., None, :]
+    return ((vp[..., 0] * p[..., 0] + vp[..., 1] * p[..., 1]) + vp[..., 2] * p[..., 2]) + vp[..., 3]
 
 
 def setup_triangles(corners_clip: Tensor, valid: Tensor, width: int, height: int,
@@ -55,8 +59,8 @@ def setup_triangles(corners_clip: Tensor, valid: Tensor, width: int, height: int
     z = ndc[..., 2]
 
     # signed screen area * 2 (y down): NDC-CCW ("front") is negative here
-    area2 = ((sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0])
-             - (sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0]))
+    area2 = ((sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0])
+             - (sy[..., 1] - sy[..., 0]) * (sx[..., 2] - sx[..., 0]))
     is_front = area2 < 0.0
     if cull == CULL_FRONT:
         ok = ok & ~is_front
@@ -68,10 +72,10 @@ def setup_triangles(corners_clip: Tensor, valid: Tensor, width: int, height: int
     # edge k is opposite corner k: (v1, v2), (v2, v0), (v0, v1)
     # (v1, v2, v0) and (v2, v0, v1) as rolls: indexing with a list would
     # copy it to the device and wait for the stream
-    ax_, ay_ = torch.roll(sx, -1, 1), torch.roll(sy, -1, 1)
-    bx_, by_ = torch.roll(sx, 1, 1), torch.roll(sy, 1, 1)
-    ea = (by_ - ay_) * orient[:, None]
-    eb = (ax_ - bx_) * orient[:, None]
+    ax_, ay_ = torch.roll(sx, -1, -1), torch.roll(sy, -1, -1)
+    bx_, by_ = torch.roll(sx, 1, -1), torch.roll(sy, 1, -1)
+    ea = (by_ - ay_) * orient[..., None]
+    eb = (ax_ - bx_) * orient[..., None]
     ec = -(ea * ax_ + eb * ay_)
     inv_area2 = 1.0 / torch.clamp(torch.abs(area2), min=1e-12)
     return TriSetup(ea, eb, ec, z, inv_w, inv_area2, sx, sy, ok)

@@ -4,7 +4,8 @@
 Local transform = T(bind + anim) * R * T(append move); append (grant)
 rotation premultiplies slerp(identity, +/- parent local rotation, |ratio|).
 World transforms compose with the 2^k-th ancestor in ``doubling_steps``
-vectorized steps.
+vectorized steps. Pose tensors may carry leading (character) axes; the
+skeleton is shared.
 """
 
 from __future__ import annotations
@@ -26,16 +27,16 @@ def effective_locals(skel: Skeleton, local_rot: Tensor, local_trans: Tensor
     has_rot = (ap >= 0) & skel.append_rotate & (torch.abs(ratio) > 1e-6)
     has_move = (ap >= 0) & skel.append_move & (torch.abs(ratio) > 1e-6)
 
-    ap_rot = local_rot[ap_safe]
+    ap_rot = local_rot[..., ap_safe, :]
     signed = torch.where((ratio < 0)[:, None], m3.quat_conj(ap_rot), ap_rot)
     ident = torch.zeros_like(ap_rot)
-    ident[:, 3] = 1.0
+    ident[..., 3] = 1.0
     q_app = m3.quat_slerp(ident, signed, torch.abs(ratio))
     rot_eff = torch.where(has_rot[:, None], m3.quat_mul(q_app, local_rot), local_rot)
 
     # append move uses the unclamped ratio
     add = torch.where(has_move[:, None],
-                      local_trans[ap_safe] * skel.append_ratio[:, None],
+                      local_trans[..., ap_safe, :] * skel.append_ratio[:, None],
                       torch.zeros_like(local_trans))
     pos = skel.bind_trans + local_trans + m3.quat_rotate(rot_eff, add)
     return rot_eff, pos
@@ -47,7 +48,7 @@ def compose_world(skel: Skeleton, rot: Tensor, pos: Tensor) -> tuple[Tensor, Ten
     for _ in range(skel.doubling_steps):
         anc_safe = torch.clamp(anc, min=0)
         has = (anc >= 0)[:, None]
-        qa, pa = q[anc_safe], p[anc_safe]
+        qa, pa = q[..., anc_safe, :], p[..., anc_safe, :]
         q, p = (torch.where(has, m3.quat_mul(qa, q), q),
                 torch.where(has, pa + m3.quat_rotate(qa, p), p))
         anc = torch.where(anc >= 0, anc[anc_safe], torch.full_like(anc, -1))
@@ -56,13 +57,13 @@ def compose_world(skel: Skeleton, rot: Tensor, pos: Tensor) -> tuple[Tensor, Ten
 
 def world_transforms(skel: Skeleton, local_rot: Tensor, local_trans: Tensor
                      ) -> tuple[Tensor, Tensor]:
-    """Full pose -> (world_quat (J, 4), world_pos (J, 3))."""
+    """Full pose -> (world_quat (..., J, 4), world_pos (..., J, 3))."""
     rot, pos = effective_locals(skel, local_rot, local_trans)
     return compose_world(skel, rot, pos)
 
 
 def skin_palette(skel: Skeleton, world_quat: Tensor, world_pos: Tensor) -> Tensor:
-    """Per-bone skin matrices (J, 3, 4): world * T(inverse bind)."""
+    """Per-bone skin matrices (..., J, 3, 4): world * T(inverse bind)."""
     rot3 = m3.mat3_from_quat(world_quat)
     trans = world_pos + m3.quat_rotate(world_quat, skel.inv_bind_trans)
     return torch.cat([rot3, trans[..., :, None]], dim=-1)

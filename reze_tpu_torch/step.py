@@ -69,13 +69,16 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     def simulate(state: SceneState, dt, track, breath):
         """Animation + IK/FK + physics + skinning -> (t, rot, trans, mw,
         tween_state, phys_state, contact_overflow, pos, nrm, uvs, mat_mod),
-        the reference's tuple."""
+        the reference's tuple. A crowd's state (``distrib.batch_state``)
+        carries a leading character axis on every tensor, and so does
+        ``track`` with per-character clips; every output then has it too,
+        and each character's values are those of its own call."""
         t = state.time + dt
         clip_t = t - state.play_t0
 
         # 1. animation sampling
         srot, strans = sampler.sample_bones(track, clip_t)
-        use = (track.has_track & state.playing)[:, None]
+        use = (track.has_track & state.playing[..., None])[..., None]
         rot = torch.where(use, srot, state.local_rot)
         trans = torch.where(use, strans, state.local_trans)
 
@@ -85,10 +88,10 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
         bq = sampler.breathing_rotation(breath["base"], breath["ranges"],
                                         torch.clamp(breath_t, min=0.0),
                                         breath["half_cycle"])
-        rot = torch.where((breath["mask"] & breathing)[:, None], bq, rot)
+        rot = torch.where((breath["mask"] & breathing[..., None])[..., None], bq, rot)
 
         # 1c. morph weights from the track while playing
-        mw = torch.where(state.playing, sampler.sample_morphs(track, clip_t),
+        mw = torch.where(state.playing[..., None], sampler.sample_morphs(track, clip_t),
                          state.morph_weights)
 
         # 2. manual tweens override while active
@@ -96,14 +99,15 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
 
         # 2b. bone morphs (rotations stored as rotation vectors)
         if model.morphs.has_bone:
-            trans = trans + torch.einsum("m,mjc->jc", mw, model.morphs.bone_trans)
-            rv = torch.einsum("m,mjc->jc", mw, model.morphs.bone_rotvec)
+            trans = trans + torch.einsum("...m,mjc->...jc", mw, model.morphs.bone_trans)
+            rv = torch.einsum("...m,mjc->...jc", mw, model.morphs.bone_rotvec)
             rot = m3.quat_mul(rot, m3.quat_from_rotvec(rv))
 
         # 2c. uv morphs
         uvs = None
         if model.morphs.has_uv:
-            uvs = model.geometry.uvs + torch.einsum("m,mvc->vc", mw, model.morphs.uv_offsets)
+            uvs = model.geometry.uvs + torch.einsum("...m,mvc->...vc", mw,
+                                                    model.morphs.uv_offsets)
 
         # 2d. material morphs -> alpha / edge-alpha factors
         mat_mod = None

@@ -8,6 +8,8 @@ builds a seeded hair-and-skirt rig at the flagship model's physics width.
 ``random_pass_inputs``
 makes seeded random triangles for the pair-pack and kernel checks, and
 ``random_stack`` a seeded fragment stack for the stack shade.
+``make_test_track`` makes a seeded keyframe clip for the synthetic model,
+and ``stack_tables`` stacks one character's tables into a crowd's.
 """
 
 from __future__ import annotations
@@ -336,6 +338,55 @@ def make_physics_rig(seed: int, n_bodies: int = 257, n_joints: int = 406, device
     return (bridge.from_jax_arrays(pm, device),
             bridge.from_jax_arrays(quat.astype(np.float32), device),
             bridge.from_jax_arrays(pos.astype(np.float32), device))
+
+
+def make_test_track(seed: int, j_pad: int = 8, nm_pad: int = 2, n_keys: int = 4,
+                    device="cuda") -> T.AnimationTrack:
+    """A seeded keyframe clip of ``duration`` 2 s for a model of ``j_pad``
+    bones and ``nm_pad`` morphs: every bone but the last has a track of 2 to
+    ``n_keys`` keys (times padded with +inf) of rotations up to 0.6 rad,
+    small translations and random Bezier easing; every morph a linear track
+    of weights in [0, 1]. ``device=None`` keeps numpy leaves (for the JAX
+    package's dataclass)."""
+    rng = np.random.default_rng(seed)
+    nk = rng.integers(2, n_keys + 1, j_pad)
+    times = np.full((j_pad, n_keys), np.inf, np.float32)
+    for b in range(j_pad):
+        times[b, :nk[b]] = np.sort(rng.uniform(0.0, 2.0, nk[b]))
+        times[b, 0] = 0.0
+    axis = rng.normal(size=(j_pad, n_keys, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    half = rng.uniform(0.0, 0.3, (j_pad, n_keys, 1))
+    rots = np.concatenate([axis * np.sin(half), np.cos(half)], -1).astype(np.float32)
+    interp = rng.uniform(0.0, 1.0, (j_pad, n_keys, 4, 4)).astype(np.float32)
+    km = n_keys
+    mtimes = np.sort(rng.uniform(0.0, 2.0, (nm_pad, km)), axis=1).astype(np.float32)
+    mtimes[:, 0] = 0.0
+    track = T.AnimationTrack(
+        times=times, rotations=rots,
+        positions=rng.uniform(-0.1, 0.1, (j_pad, n_keys, 3)).astype(np.float32),
+        interp=interp, n_keys=nk.astype(np.int32),
+        has_track=np.arange(j_pad) < j_pad - 1,
+        morph_times=mtimes, morph_values=rng.uniform(0, 1, (nm_pad, km)).astype(np.float32),
+        morph_n_keys=np.full(nm_pad, km, np.int32), duration=2.0)
+    return track if device is None else bridge.from_jax_arrays(track, device)
+
+
+def stack_tables(tables: list):
+    """One character's tables per character (a NamedTuple of tensors, e.g.
+    ``frame_gpu.FrameTables``, or a dataclass such as an
+    ``AnimationTrack``) -> the crowd's, every tensor stacked on a leading
+    character axis."""
+    import dataclasses
+
+    import torch
+
+    first = tables[0]
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: torch.stack([getattr(t, f.name) for t in tables])
+            for f in dataclasses.fields(first) if isinstance(getattr(first, f.name), torch.Tensor)})
+    return type(first)(*(torch.stack(list(f)) for f in zip(*tables)))
 
 
 def empty_morph_tables(offsets: np.ndarray, n_mats: int) -> T.Morphs:

@@ -1,0 +1,130 @@
+"""Device time of the port's single-character CUDA kernels on the 1920x1080
+main path's own inputs, for comparing checkouts of the repo on one card.
+
+    python3 scripts/torch_kernel_ab.py ROOT [ROOT ...]
+
+Runs one process per ROOT, in the order given, each importing
+``reze_tpu_torch`` from that checkout and building its kernels there. Per
+ROOT it prints one JSON line: the card's name and power limit, the ptxas
+register and spill lines of the frame, stream, stack-shade and composite
+kernels (when that process built them), and the median device ms of one
+launch of each (torch.profiler records, as ``chip_smoke.kernel_ms``) on
+the synthetic model's main-path inputs (``chip_smoke.py`` phase 3d). Give
+the roots in turns (A B B A) so that drift shows. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = ("frame_kernel", "stream_kernel", "shade_stack_kernel", "composite_kernel")
+N_TIMED = 50
+
+
+def ptxas_lines(log: str) -> dict:
+    """{kernel entry (mangled): "registers ... / spills ..."} of the four
+    kernels from an nvcc -Xptxas -v log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if any(k in name for k in KERNELS) else None
+        elif entry and ("spill" in line or "registers" in line):
+            text = line.strip().split("ptxas info    : ")[-1]
+            out[entry] = (out[entry] + " / " + text) if entry in out else text
+    return out
+
+
+def worker(root: str) -> dict:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs  # kernel_ms; imports nothing of the package
+
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.core import math3d as m3
+    from reze_tpu_torch.core.types import EngineConfig, init_scene_state
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import cuda_lib
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_stream as FS
+    from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.render import pipeline, pipeline_gpu
+    from reze_tpu_torch.step import make_step
+
+    cs.require(os.path.dirname(os.path.abspath(FG.__file__)).startswith(os.path.abspath(root)),
+               ("package not taken from", root))
+    dev = torch.device("cuda")
+    cuda_lib.library()
+    W, H = cs.W, cs.H
+    cfg = EngineConfig(width=W, height=H, enable_physics=False)
+    model = testing.make_test_model(device=dev)
+    cam = Camera(alpha=0.0, beta=np.pi / 2, radius=3.0, target=(0.0, 1.9, 0.0), aspect=W / H)
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    base = torch.zeros((j, 4), device=dev)
+    base[:, 3] = 1.0
+    breath = {"mask": torch.zeros(j, dtype=torch.bool, device=dev),
+              "ranges": torch.zeros(j, device=dev), "base": base,
+              "half_cycle": torch.tensor(2.0, device=dev),
+              "start": torch.tensor(float("inf"), device=dev)}
+    track = sampler.empty_animation(j, nm, dev)
+    vp, eye = cam.view_proj(dev), cam.position(dev)
+    lights = pipeline.make_lights(EngineConfig(), dev)
+    sim = make_step(model, cfg).simulate(init_scene_state(model), torch.tensor(1 / 60, device=dev),
+                                         track, breath)
+    pos, nrm = sim[7], sim[8]
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    tables = SG.pack_shade_tables(model.materials, model.atlas)
+    inv_vp = m3.mat4_inverse(vp).contiguous()
+    use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model)
+    ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, pos, nrm, vp, None)
+    st = pipeline_gpu._build_stream_tables(model, cfg, dims, tables, pos, nrm, vp, None)
+    stack, _ = pipeline_gpu.layered_stack(model, cfg, dims, tables, pos, nrm, vp)
+    shade = (tables, lights, cfg.rim_light_intensity, eye, inv_vp)
+    fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, use_mips=use_mips,
+               lod_bias=lod_bias)
+    o = FG.render_megakernel(ft, *shade, **fkw)
+    atlas = model.atlas.mip_flat.contiguous()
+    ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
+               with_bloom=cfg.enable_bloom)
+    calls = {"frame_kernel": lambda: FG.render_megakernel(ft, *shade, **fkw),
+             "stream_kernel": lambda: FS.render_megakernel_stream(
+                 st, hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples),
+             "shade_stack_kernel": lambda: SG.shade_stack(stack, *shade, use_mips=use_mips,
+                                                          lod_bias=lod_bias),
+             "composite_kernel": lambda: CG.composite(o, atlas, **ckw)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return {"root": root, "card": smi, "built": cuda_lib.build_seconds is not None,
+            "ptxas": ptxas_lines(cuda_lib.build_log),
+            "ms": {k: round(cs.kernel_ms(fn, N_TIMED, k), 5) for k, fn in calls.items()}}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+        print(json.dumps(worker(os.path.abspath(sys.argv[2]))), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in sys.argv[1:]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                             capture_output=True, text=True)
+        lines = res.stdout.strip().splitlines()
+        if res.returncode or not lines:
+            print(res.stdout + res.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,9 @@ whole step on the GPU against the step on the CPU, for the main path, the
 three other megakernels (``rasterizer`` "stream", "mxu", "hybrid"), both
 per-pass paths and the default configuration with physics; each path's
 step free of synchronising copies; the rigid-body solver on the card
-against its CPU run. Marked ``cuda``: every test skips without a CUDA
+against its CPU run; the crowd's batched kernels against their twins at C
+= 3, and the crowd step on the card against the crowd step on the CPU, against
+the single step of each character, and free of synchronising copies. Marked ``cuda``: every test skips without a CUDA
 device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
@@ -14,7 +16,7 @@ raster pass also ``testing.compare_raster``). The composite is held to
 1e-6 and a frame to 1/255 on 99 % of pixels, the CPU parity tests'
 bounds. The solver's trajectories on the card and the CPU part in the
 last bits (the two sum in other orders and round library functions
-differently, and the card's index_add_ adds in no fixed order) and the
+differently, and the card's scatter_add_ adds in no fixed order) and the
 gap grows with frames: bodies within ``RIG_TOL`` =
 1e-3 over the rig's first 10 frames and within ``SCENE_TOL`` = 1e-4 over
 the contact scene's 60."""
@@ -28,7 +30,7 @@ import torch
 
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.camera import Camera
-from reze_tpu_torch import bridge
+from reze_tpu_torch import bridge, distrib
 from reze_tpu_torch.core.types import EngineConfig, init_physics_state, init_scene_state
 from reze_tpu_torch.core.types import PhysicsModel as PT_PhysicsModel
 from reze_tpu_torch.kernels import composite_gpu as CG
@@ -435,3 +437,197 @@ def test_solver_on_gpu_matches_cpu(dev, scene, frames, tol):
             assert torch.isfinite(b).all() and (a - b).abs().max().item() <= tol
     moved = (traj[str(dev)][-1][0] - traj[str(dev)][0][0]).abs().max().item()
     assert moved > 0.1
+
+
+# --- the crowd: batched kernels and the crowd step ----------------------------
+
+CROWD_SEEDS = (11, 12, 13)
+
+
+def _crowd_shade_args(dev):
+    """The shared shade tables and lights, and per character a seeded eye
+    position (C, 3) and inverse view-projection (C, 4, 4)."""
+    tables, lights, _, _ = _shade_args(dev)
+    sh = [ptesting.random_shade_inputs(s) for s in CROWD_SEEDS]
+    return (tables, lights, torch.as_tensor(np.stack([x["eye_pos"] for x in sh]), device=dev),
+            torch.as_tensor(np.stack([x["inv_vp"] for x in sh]), device=dev))
+
+
+def _crowd_frame_tables(dev, n_tris=N_TRIS):
+    return ptesting.stack_tables([ptesting.random_frame_tables(s, n_tris, HP, WP, device=dev)
+                                  for s in CROWD_SEEDS])
+
+
+@pytest.mark.parametrize("analytic,use_mips,n", [(False, True, 4), (True, False, 1),
+                                                 (False, False, 2)])
+def test_frame_crowd_kernel_matches_twin(dev, analytic, use_mips, n):
+    """One launch over three characters: bit for bit the crowd twin, and
+    each character's output that of the single-character launch."""
+    ft = _crowd_frame_tables(dev)
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    kw = dict(hp=HP, wp=WP, n_samples=n, use_mips=use_mips, lod_bias=(1.0, 0.0),
+              analytic=analytic)
+    before = FG.render_megakernel_crowd.launches
+    got = FG.render_megakernel_crowd(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    want = FG.render_megakernel_crowd_twin(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    torch.cuda.synchronize()
+    assert FG.render_megakernel_crowd.launches == before + 1
+    assert got.shape == (len(CROWD_SEEDS), 2 * SG.O_CH, HP, WP)
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+    for c in range(len(CROWD_SEEDS)):
+        one = FG.FrameTables(ft.rows[c], ft.starts[c], ft.counts[c], ft.overflow[c])
+        assert torch.equal(got[c], FG.render_megakernel(one, tables, lights, 0.45, eyes[c],
+                                                        ivps[c], **kw))
+
+
+@pytest.mark.parametrize("n", [4, 1])
+def test_stream_crowd_kernel_matches_twin(dev, n):
+    st = ptesting.stack_tables([ptesting.random_stream_tables(s, N_TRIS, HP, WP, device=dev)
+                                for s in CROWD_SEEDS])
+    before = FS.render_megakernel_stream_crowd.launches
+    got = FS.render_megakernel_stream_crowd(st, hp=HP, wp=WP, n_samples=n)
+    want = FS.render_megakernel_stream_crowd_twin(st, hp=HP, wp=WP, n_samples=n)
+    torch.cuda.synchronize()
+    assert FS.render_megakernel_stream_crowd.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+    stack = FS.compose_stream_state(got, n)
+    assert stack.shape == (len(CROWD_SEEDS), 2 * SG.L_CH, HP, WP)
+    assert torch.equal(stack[1], FS.compose_stream_state(got[1], n))
+
+
+@pytest.mark.parametrize("use_mips", [True, False])
+def test_shade_stack_crowd_kernel_matches_twin(dev, use_mips):
+    stack = torch.stack([ptesting.random_stack(s, 64, 256, empty_tiles=((0, 0),), device=dev)
+                         for s in CROWD_SEEDS])
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    kw = dict(use_mips=use_mips, lod_bias=(1.0, 0.0))
+    before = SG.shade_stack_crowd.launches
+    got = SG.shade_stack_crowd(stack, tables, lights, 0.45, eyes, ivps, **kw)
+    want = SG.shade_stack_crowd_twin(stack, tables, lights, 0.45, eyes, ivps, **kw)
+    torch.cuda.synchronize()
+    assert SG.shade_stack_crowd.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("half", [(True, True), (False, True)])
+def test_composite_crowd_kernel_matches_twin(dev, half):
+    ft = ptesting.stack_tables([ptesting.random_frame_tables(s, N_TRIS, 32, WP, device=dev)
+                                for s in CROWD_SEEDS])
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    o = FG.render_megakernel_crowd(ft, tables, lights, 0.45, eyes, ivps, hp=32, wp=WP,
+                                   n_samples=4, use_mips=True)
+    atlas = torch.as_tensor(ptesting.random_shade_inputs(5)["mip_flat"], device=dev)
+    kw = dict(half0=half[0], half1=half[1], with_bloom=True)
+    before = CG.composite_crowd.launches
+    img, seed = CG.composite_crowd(o, atlas, **kw)
+    img_t, seed_t = CG.composite_crowd_twin(o, atlas, **kw)
+    torch.cuda.synchronize()
+    assert CG.composite_crowd.launches == before + 1
+    assert (img - img_t).abs().max().item() <= 1e-6
+    assert (seed - seed_t).abs().max().item() <= 1e-6
+
+
+def test_crowd_wrapper_refuses_unaligned_character(dev):
+    """The frame kernel bulk-copies each character's rows: rows whose
+    per-character stride leaves a character's block off a 16-byte
+    boundary are refused, though the base pointer is aligned; a stride
+    that keeps every block aligned launches, and gives the contiguous
+    crowd's output."""
+    ft = _crowd_frame_tables(dev)
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    c, n, w = ft.rows.shape
+    kw = dict(hp=HP, wp=WP, n_samples=4)
+    want = FG.render_megakernel_crowd(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    for pad, ok in ((1, False), (4, True)):
+        buf = torch.zeros(c * (n * w + pad), device=dev)
+        rows = torch.as_strided(buf, (c, n, w), (n * w + pad, w, 1))
+        rows.copy_(ft.rows)
+        args = (ft._replace(rows=rows), tables, lights, 0.45, eyes, ivps)
+        if ok:
+            assert torch.equal(FG.render_megakernel_crowd(*args, **kw), want)
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                FG.render_megakernel_crowd(*args, **kw)
+    with pytest.raises(ValueError):  # one eye position for three characters
+        FG.render_megakernel_crowd(ft, tables, lights, 0.45, eyes[0], ivps, **kw)
+
+
+def _crowd_args(model, cfg, n, d):
+    """(dt, view_projs, eyes, lights, track, breath) of ``n`` characters,
+    each with its own camera; a seeded clip shared by the crowd."""
+    _, _, _, lights, _, breath = _step_args(model, cfg, d)
+    cams = [Camera(alpha=0.2 * c - 0.3, beta=np.pi / 2, radius=3.4 + 0.2 * c,
+                   target=(0.0, 1.9, 0.0), aspect=cfg.width / cfg.height) for c in range(n)]
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    return (torch.tensor(1 / 60, device=d), torch.stack([cam.view_proj(d) for cam in cams]),
+            torch.stack([cam.position(d) for cam in cams]), lights,
+            ptesting.make_test_track(1, j, nm, device=d), breath)
+
+
+def _crowd_states(model, n):
+    states = distrib.batch_state(model, n)
+    dev = states.time.device
+    return dataclasses.replace(states, playing=torch.ones(n, dtype=torch.bool, device=dev),
+                               play_t0=-0.35 * torch.arange(n, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("rasterizer", ["group", "stream"])
+def test_crowd_step_on_gpu_matches_cpu(dev, rasterizer):
+    cfg = EngineConfig(width=256, height=128, rasterizer=rasterizer)
+    frames, states = {}, {}
+    for d in ("cpu", dev):
+        model = ptesting.make_test_model(tex_hw=(16, 2), device=d)
+        step = distrib.make_batched_step(model, cfg)
+        args = _crowd_args(model, cfg, 3, d)
+        state, frame = step(_crowd_states(model, 3), *args)
+        state, frame = step(state, *args)
+        frames[str(d)], states[str(d)] = frame.cpu().numpy(), state
+        assert (state.diag.pair_overflow == 0).all()
+    for c in range(3):
+        diff = np.abs(frames["cpu"][c] - frames[str(dev)][c]).max(-1)
+        assert (diff <= 1 / 255).mean() >= 0.99, c
+    pc, pg = states["cpu"].physics, states[str(dev)].physics
+    assert torch.equal(pc.time_accum, pg.time_accum.cpu())
+    assert (pc.position - pg.position.cpu()).abs().max().item() <= SCENE_TOL
+
+
+@pytest.mark.parametrize("rasterizer", ["group", "stream"])
+def test_crowd_step_on_gpu_matches_single_steps(dev, rasterizer):
+    """A crowd of three (not a power of two) on the card: each character's
+    frame within 1e-5 of the single step from its own state."""
+    cfg = EngineConfig(width=256, height=128, rasterizer=rasterizer)
+    model = ptesting.make_test_model(tex_hw=(16, 2), device=dev)
+    step, single = distrib.make_batched_step(model, cfg), make_step(model, cfg)
+    dt, vps, eyes, lights, track, breath = _crowd_args(model, cfg, 3, dev)
+    before, _ = step(_crowd_states(model, 3), dt, vps, eyes, lights, track, breath)
+    _, frames = step(before, dt, vps, eyes, lights, track, breath)
+    for c in range(3):
+        _, f1 = single(distrib._map(lambda x: x[c], before), dt, vps[c], eyes[c], lights,
+                       track, breath)
+        assert (f1 - frames[c]).abs().max().item() <= 1e-5, c
+
+
+@pytest.mark.parametrize("rasterizer", ["group", "stream"])
+@pytest.mark.parametrize("physics", [False, True])
+def test_crowd_step_makes_no_synchronising_copy(dev, rasterizer, physics):
+    """One crowd step of four characters under ``set_sync_debug_mode``
+    (after a first step): no synchronising copy with physics off, one with
+    physics on, where the solver reads the crowd's largest substep count."""
+    cfg = EngineConfig(width=256, height=256, rasterizer=rasterizer, enable_physics=physics)
+    model = ptesting.make_test_model(device=dev)
+    step = distrib.make_batched_step(model, cfg)
+    args = _crowd_args(model, cfg, 4, dev)
+    state, _ = step(_crowd_states(model, 4), *args)
+    torch.cuda.set_sync_debug_mode("warn")  # its first call may itself warn
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, frames = step(state, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == (1 if physics else 0), syncs
+    assert bool(torch.isfinite(frames).all())
