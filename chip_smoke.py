@@ -14,6 +14,11 @@ Phases, each printed on its own line:
    the composite (within 1e-6) bit for bit in every output value: the
    frame and composite kernels on seeded random triangles (16x256, both
    coverage modes) and on the 1920x1080 frame of the main path; the
+   composite's quad mode (bilinear albedo) on the parity path's own 1080p
+   shade outputs with the model's level-0 quad table and with a seeded
+   table of QUAD_ROWS footprints (a gather that leaves L2), each half-res
+   mode, one character and a crowd of three, and its refusal of a table
+   off 16 bytes; the
    raster-pass and stack-shade kernels on the seeded tables and stack of
    the CPU tests (64x256) and on the 1080p frame's own seven pass tables
    and stack; the hybrid, mxu and stream kernels on the CPU tests' seeded
@@ -24,19 +29,24 @@ Phases, each printed on its own line:
    chained) and the stack shade on a whole stack with both layers present
    in every tile; (3c) the crowd's batched kernels (frame, stream, stack
    shade, composite: one launch over three characters of seeded random
-   tables, a seed each) against their crowd twins, and again in phase 4c
-   on the crowd's own inputs;
-4. the seven paths of ``make_step`` at 1920x1080 on the synthetic model
+   tables, a seed each) against their crowd twins, with the hybrid
+   kernel's crowd mode and the composite's quad mode, and again in phase
+   4c on the crowd's own inputs;
+4. the nine paths of ``make_step`` at 1920x1080 on the synthetic model
    with the camera close enough that its quads span the frame height, 5
-   frames each: six with physics off, the main path (the default
+   frames each: seven with physics off, the main path (the default
    ``EngineConfig`` but for physics), the other three megakernels
    (``rasterizer`` "stream", "mxu", "hybrid"), the layered per-pass path
-   (``use_megakernel=False``) and the non-layered per-pass path
-   (``layered_shading=False``), and ``default``, the default
-   ``EngineConfig`` with its rigid-body physics. Each checks finite
-   frames, the covered fraction, no pair overflow and its kernels'
-   launches per frame (counts set to 0 just before the path and read just
-   after);
+   (``use_megakernel=False``), the non-layered per-pass path
+   (``layered_shading=False``) and ``parity_layered`` (the layered path
+   with ``PARITY``'s bilinear albedo); ``default``, the default
+   ``EngineConfig`` with its rigid-body physics; and ``parity``,
+   ``default`` with ``PARITY`` (``bench.py``'s ``parity_fps`` config). Each
+   checks finite frames, the covered fraction, no pair overflow and its
+   kernels' launches per frame (counts set to 0 just before the path and
+   read just after); the parity frame is held within PARITY_TOL of the
+   same frame through the 4-tap composite (the model without quad
+   tables);
    (4b) physics: ``physics.solver.step`` on the 257-body, 406-joint rig
    (``testing.make_physics_rig``) at dt = 1/60 s for 120 frames on the
    card and on the CPU, and on the CPU again from a start 1 ulp away, the
@@ -45,15 +55,20 @@ Phases, each printed on its own line:
    the synthetic model at CROWD_SIZE x CROWD_SIZE with the default
    ``EngineConfig`` (physics on), each with its own camera, clip start
    and accumulator, on the "group" and "stream" routes and "group" in
-   chunks: finite frames, the covered fraction of every character, no pair
-   overflow, the batched kernels' launches (counts set to 0 just before
-   each route and read just after), each character's frame within
-   CROWD_TOL of the single step from its own state (also in a crowd of
-   CROWD_ODD on both routes), chunked frames equal to unchunked ones;
+   chunks, and "group" and "stream" in the parity config: finite frames,
+   the covered fraction of every character, no pair overflow, the batched
+   kernels' launches (counts set to 0 just before each route and read just
+   after), each character's frame within CROWD_TOL of the single step from
+   its own state (also in a crowd of CROWD_ODD on each unchunked route),
+   chunked frames equal to unchunked ones; then ``render_crowd_mega`` with
+   ``rasterizer="hybrid"`` on the crowd's inputs (one hybrid crowd launch),
+   each character within CROWD_TOL of its single ``render_frame_mega``;
 5. timing: milliseconds per frame of each path (host clock over
-   state-carrying steps, the seven paths twice in turns in one call), and
+   state-carrying steps, the nine paths twice in turns in one call), and
    each kernel's device time (torch.profiler's records of its launches)
-   next to its twin's (CUDA events) at the 1080p shapes, with its bound;
+   next to its twin's (CUDA events) at the 1080p shapes, with its bound
+   (the quad composite on the parity path's inputs and on the large
+   table);
    (5b) the frame, hybrid and raster-pass kernels and the stack shade on
    three input sets at the main path's shape: its own inputs, empty ones
    and the dense set (the raster pass per launch over its seven chained
@@ -130,6 +145,16 @@ CROWD_ODD = 3
 RIG_CROWD = 8
 RIG_NUDGE = 1e-3
 W, H = 1920, 1080
+# bench.py's parity_fps config: bilinear albedo from the quad table, level
+# 0, both layers at full res; its frame within PARITY_TOL of the 4-tap
+# composite's (tests/test_render_pipeline.py's quad-against-4-gather bound)
+PARITY = dict(albedo_bilinear=True, albedo_mips=False, albedo_half_visible=False,
+              albedo_half_occluded=False)
+PARITY_TOL = 1e-5
+# the large quad table of phases 3 and 5: QUAD_ROWS seeded footprints (64
+# MB, beyond the 50 MB L2), indexed by seeded rows where a pixel has a texel
+QUAD_SEED = 9
+QUAD_ROWS = 4 * 1024 * 1024
 # the dense table set (phases 3e, 5b): seeded random triangles per pass,
 # each spanning a fixed share of the frame, so at 1088x1920 the pairs of a
 # non-empty tile and pass average several 128-pair chunks; the capacity
@@ -159,8 +184,10 @@ MXU_SAMPLE_OPS = PLANE_OPS + 4
 # 4 lights x 9 knots x 3 channels of hat-basis sums dominate)
 SHADE_OPS = 400
 # float operations of one pixel of the composite (two layers' unpack and
-# blend, the bloom seed)
+# blend, the bloom seed); the quad mode adds per layer four weights and
+# three channels of four products and sums
 COMPOSITE_OPS = 30
+QUAD_COMPOSITE_OPS = COMPOSITE_OPS + 2 * (8 + 3 * 4 * 3)
 
 
 def require(cond: bool, what) -> None:
@@ -298,7 +325,45 @@ def composite_bound(o, atlas, img, seed, half_layers: int) -> tuple[float, str]:
                  p * COMPOSITE_OPS)
 
 
-def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat) -> None:
+def quad_bound(o, quad, img, seed, half) -> tuple[float, str]:
+    """The quad composite's: per layer 8 of the 9 shade planes in (it does
+    not read O_DXDY), the distinct footprint rows it gathers (a half-res
+    layer's at its even-row, even-column pixels), image and bloom seed
+    out."""
+    import torch
+
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    rows = []
+    for layer in range(2):
+        tex = o[..., layer * SG.O_CH + SG.O_TEX, :, :]
+        tex = CG.even_source(tex) if half[layer] else tex
+        rows.append(torch.clamp(tex, min=0.0).to(torch.int64).clamp(max=quad.shape[0] - 1))
+    n_rows = torch.unique(torch.cat([r.reshape(-1) for r in rows])).numel()
+    p = o.numel() // (2 * SG.O_CH)
+    return bound(2 * (SG.O_CH - 1) * p * 4 + n_rows * quad.shape[1] + nbytes(img, seed),
+                 p * QUAD_COMPOSITE_OPS)
+
+
+class Launches:
+    """A wrapper's launch count kept under another attribute (the
+    composite counts its quad mode in ``quad_launches``), read and set
+    through ``.launches`` as the other wrappers' counts are."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.fn, self.attr, value)
+
+
+def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat, mip_quad) -> None:
     """Phase 3c: each batched kernel, one launch over three characters of
     seeded random tables (a seed each, the CPU tests' shapes), against its
     crowd twin through ``check(kernel, label, got, want)``."""
@@ -308,6 +373,7 @@ def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat) -> None:
     from reze_tpu_torch import testing
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_hybrid as FH
     from reze_tpu_torch.kernels import frame_stream as FS
     from reze_tpu_torch.kernels import shade_gpu as SG
 
@@ -328,6 +394,9 @@ def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat) -> None:
         check("frame_crowd", f"random_3x16x256_{name}",
               FG.render_megakernel_crowd(ft, *shade, **kw),
               FG.render_megakernel_crowd_twin(ft, *shade, **kw))
+        check("hybrid_crowd", f"random_3x16x256_{name}",
+              FH.render_megakernel_hybrid_crowd(ft, *shade, **kw),
+              FH.render_megakernel_hybrid_crowd_twin(ft, *shade, **kw))
     st = testing.stack_tables([testing.random_stream_tables(s, (400,) * 7, 16, 256, device=dev)
                                for s in seeds])
     kw = dict(hp=16, wp=256, n_samples=4)
@@ -345,6 +414,10 @@ def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat) -> None:
     kw = dict(half0=True, half1=True, with_bloom=True)
     check("composite_crowd", "random_3x32x256", CG.composite_crowd(o, mip_flat, **kw),
           CG.composite_crowd_twin(o, mip_flat, **kw))
+    for half in ((False, False), (True, True), (False, True)):
+        kw = dict(half0=half[0], half1=half[1], with_bloom=True)
+        check("composite_crowd_quad", f"random_3x32x256_half{int(half[0])}{int(half[1])}",
+              CG.composite_crowd(o, mip_quad, **kw), CG.composite_crowd_twin(o, mip_quad, **kw))
 
 
 def crowd_inputs(model, cfg, n: int, dev, track, breath):
@@ -389,20 +462,26 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
     from reze_tpu_torch.core.types import EngineConfig
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_hybrid as FH
     from reze_tpu_torch.kernels import frame_stream as FS
     from reze_tpu_torch.kernels import shade_gpu as SG
     from reze_tpu_torch.render import pipeline_gpu
     from reze_tpu_torch.step import make_step
 
     cfg = EngineConfig(width=CROWD_SIZE, height=CROWD_SIZE)
+    parity = dataclasses.replace(cfg, **PARITY)
     j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
     track = testing.make_test_track(1, j, nm, device=dev)
     routes = {"group": (cfg, None), "stream": (dataclasses.replace(cfg, rasterizer="stream"), None),
-              "group_chunked": (cfg, CROWD_CHUNK)}
+              "group_chunked": (cfg, CROWD_CHUNK), "parity_group": (parity, None),
+              "parity_stream": (dataclasses.replace(parity, rasterizer="stream"), None)}
     per_launch = {"group": {"frame_crowd": 1, "composite_crowd": 1},
                   "stream": {"stream_crowd": 1, "shade_stack_crowd": 1, "composite_crowd": 1},
                   "group_chunked": {"frame_crowd": CROWD_C // CROWD_CHUNK,
-                                    "composite_crowd": CROWD_C // CROWD_CHUNK}}
+                                    "composite_crowd": CROWD_C // CROWD_CHUNK},
+                  "parity_group": {"frame_crowd": 1, "composite_crowd_quad": 1},
+                  "parity_stream": {"stream_crowd": 1, "shade_stack_crowd": 1,
+                                    "composite_crowd_quad": 1}}
     launches, runs = {}, {}
     for name, (rcfg, chunk) in routes.items():
         step = distrib.make_batched_step(model, rcfg, crowd_chunk=chunk)
@@ -455,7 +534,7 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
 
     # every character against the single step from its own state, in the
     # full crowd and in one of CROWD_ODD
-    for name in ("group", "stream"):
+    for name in ("group", "stream", "parity_group", "parity_stream"):
         before, _, frames, args = runs[name]
         against_single(name, before, frames[-1], args)
         step = distrib.make_batched_step(model, routes[name][0])
@@ -500,10 +579,39 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
           CG.composite_crowd_twin(o, atlas, **ckw))
     half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
     img, seed = CG.composite_crowd(o, atlas, **ckw)
-    return {"launches": {k: launches[r][k] // CROWD_FRAMES
-                         for r, k in (("group", "frame_crowd"), ("group", "composite_crowd"),
-                                      ("stream", "stream_crowd"),
-                                      ("stream", "shade_stack_crowd"))},
+    o_h = FH.render_megakernel_hybrid_crowd(ft, *shade, **fkw)
+    check("hybrid_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", o_h,
+          FH.render_megakernel_hybrid_crowd_twin(ft, *shade, **fkw))
+
+    # the hybrid crowd: render_crowd_mega on the crowd's inputs, counts set
+    # to 0 just before and read just after, each character against its
+    # single render
+    hcfg = dataclasses.replace(cfg, rasterizer="hybrid")
+    mat_mod = sim[10]
+    for fn in counters.values():
+        fn.launches = 0
+    frames_h, ovf_h = pipeline_gpu.render_crowd_mega(model, hcfg, dims, pos, nrm, vps, eyes,
+                                                     lights, uvs=uvs, mat_mod=mat_mod)
+    torch.cuda.synchronize()
+    hybrid_launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: int(k in ("hybrid_crowd", "composite_crowd")) for k in counters}
+    require(hybrid_launches == want, ("hybrid crowd launches", hybrid_launches, want))
+    require(int(ovf_h.max()) == 0, "hybrid crowd pair overflow")
+    err = 0.0
+    for c in range(CROWD_C):
+        f1, _ = pipeline_gpu.render_frame_mega(
+            model, hcfg, dims, pos[c], nrm[c], vps[c], eyes[c], lights,
+            uvs=None if uvs is None else uvs[c],
+            mat_mod=None if mat_mod is None else tuple(x[c] for x in mat_mod))
+        err = max(err, (f1 - frames_h[c]).abs().max().item())
+    phase("crowd_check", route="hybrid_render_crowd_mega", chars=CROWD_C,
+          launches=hybrid_launches, against="single_render_per_character", max_abs_err=err)
+    require(err <= CROWD_TOL, ("hybrid crowd against the single render", err))
+    return {"launches": {**{k: launches[r][k] // CROWD_FRAMES
+                            for r, k in (("group", "frame_crowd"), ("group", "composite_crowd"),
+                                         ("stream", "stream_crowd"),
+                                         ("stream", "shade_stack_crowd"))},
+                         "hybrid_crowd": hybrid_launches["hybrid_crowd"]},
             "cfg": cfg, "track": track,
             "calls": {
                 "frame_crowd": (lambda: FG.render_megakernel_crowd(ft, *shade, **fkw),
@@ -518,7 +626,12 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
                 "composite_crowd": (lambda: CG.composite_crowd(o, atlas, **ckw),
                                     lambda: CG.composite_crowd_twin(o, atlas, **ckw),
                                     "composite_kernel",
-                                    composite_bound(o, atlas, img, seed, half_layers))}}
+                                    composite_bound(o, atlas, img, seed, half_layers)),
+                "hybrid_crowd": (lambda: FH.render_megakernel_hybrid_crowd(ft, *shade, **fkw),
+                                 lambda: FH.render_megakernel_hybrid_crowd_twin(ft, *shade,
+                                                                                **fkw),
+                                 "hybrid_kernel", frame_bound(ft, tables, o_h,
+                                                              cfg.msaa_samples))}}
 
 
 def crowd_timing(dev, smi: str, model, breath, crowd: dict) -> dict:
@@ -799,10 +912,10 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     # stream and stack shade bit for bit, the composite within 1e-6; here
     # on seeded random tables, in phase 4c on the crowd's own inputs
     crowd_err = {k: 0.0 for k in ("frame_crowd", "stream_crowd", "shade_stack_crowd",
-                                  "composite_crowd")}
+                                  "composite_crowd", "composite_crowd_quad", "hybrid_crowd")}
 
     def check_crowd(kernel, label, got, want):
-        if kernel == "composite_crowd":  # (images, bloom seeds)
+        if kernel.startswith("composite_crowd"):  # (images, bloom seeds)
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
             phase("check", kernel=kernel, tables=label, chars=got[0].shape[0], max_abs_err=err)
             require(err <= 1e-6, (kernel, label, err))
@@ -813,7 +926,7 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             require(frac == 1.0, (kernel, label, frac, err))
         crowd_err[kernel] = max(crowd_err[kernel], err)
 
-    crowd_kernel_checks(dev, check_crowd, rtab, lights, t("mip_flat"))
+    crowd_kernel_checks(dev, check_crowd, rtab, lights, t("mip_flat"), t("mip_quad"))
 
     # the main path's model, camera and inputs
     cfg = EngineConfig(width=W, height=H, enable_physics=False)
@@ -835,7 +948,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                              for r in ("stream", "mxu", "hybrid")},
              "layered": dataclasses.replace(cfg, use_megakernel=False),
              "per_pass": dataclasses.replace(cfg, layered_shading=False),
-             "default": dataclasses.replace(cfg, enable_physics=True)}
+             "parity_layered": dataclasses.replace(cfg, use_megakernel=False, **PARITY),
+             "default": dataclasses.replace(cfg, enable_physics=True),
+             "parity": dataclasses.replace(cfg, enable_physics=True, **PARITY)}
     steps = {name: make_step(model, c) for name, c in paths.items()}
     step = steps["main"]
 
@@ -889,6 +1004,45 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     comp_err = max((img_k - img_t).abs().max().item(), (seed_k - seed_t).abs().max().item())
     phase("check", kernel="composite", tables=f"main_path_{W}x{H}", max_abs_err=comp_err)
     require(comp_err <= 1e-6, comp_err)
+
+    # the quad composite: on the parity path's own shade outputs (level 0,
+    # as albedo_mips=False shades) with the model's level-0 quad table, and
+    # on the same outputs indexing a seeded table of QUAD_ROWS footprints;
+    # each half-res mode, one character and a crowd of three
+    o_par = FG.render_megakernel(*fargs, hp=dims.hp, wp=dims.wp, n_samples=s)
+    flat_quad = model.atlas.flat_quad.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(QUAD_SEED)
+    big_quad = torch.randint(0, 256, (QUAD_ROWS, 16), dtype=torch.uint8, device=dev,
+                             generator=gen)
+    o_big = o_par.clone()
+    for ch in (SG.O_TEX, SG.O_CH + SG.O_TEX):
+        rows = torch.randint(0, QUAD_ROWS, (dims.hp, dims.wp), device=dev, generator=gen)
+        o_big[ch] = torch.where(o_par[ch] >= 0, rows.to(torch.float32), o_par[ch])
+    o_three = torch.stack([o_par, o_big, o_big.flip(-1)])
+    quad_err = 0.0
+    for half in ((False, False), (True, True), (False, True)):
+        qkw = dict(half0=half[0], half1=half[1], with_bloom=True)
+        for label, o_q, table, fn, twin in (
+                ("parity_path", o_par, flat_quad, CG.composite, CG.composite_twin),
+                (f"random_{QUAD_ROWS}_rows", o_big, big_quad, CG.composite, CG.composite_twin),
+                (f"crowd3_{QUAD_ROWS}_rows", o_three, big_quad, CG.composite_crowd,
+                 CG.composite_crowd_twin)):
+            got_q, want_q = fn(o_q, table, **qkw), twin(o_q, table, **qkw)
+            err = max((a - b).abs().max().item() for a, b in zip(got_q, want_q))
+            phase("check", kernel="composite_quad", tables=f"{label}_{W}x{H}",
+                  half=f"{int(half[0])}{int(half[1])}", max_abs_err=err)
+            require(err <= 1e-6, ("composite_quad", label, half, err))
+            quad_err = max(quad_err, err)
+    # a footprint is one 16-byte load: a table off 16 bytes is refused
+    shifted = torch.zeros(flat_quad.numel() + 4, dtype=torch.uint8, device=dev)[4:]
+    try:
+        CG.composite(o_par, shifted.view(flat_quad.shape), half0=False, half1=False,
+                     with_bloom=True)
+        refused = False
+    except ValueError:
+        refused = True
+    phase("check", kernel="composite_quad", unaligned_table="refused" if refused else "taken")
+    require(refused, "the quad composite took a table off 16 bytes")
 
     ptabs = [pipeline_gpu.pass_tables(model, cfg, dims, pos, nrm, vp, None, p)
              for p in range(FG.N_PASSES)]
@@ -984,21 +1138,26 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         check_exact("shade_stack", f"all_present_{dims.hp}x{dims.wp}_mips{int(mips)}",
                     SG.shade_stack(*dsa, **dskw), SG.shade_stack_twin(*dsa, **dskw))
 
-    # 4. the seven paths, 5 frames each, counts set to 0 just before each
+    # 4. the nine paths, 5 frames each, counts set to 0 just before each
     counters = {"frame": FG.render_megakernel, "stream": FS.render_megakernel_stream,
                 "mxu": FM.render_megakernel_mxu, "hybrid": FH.render_megakernel_hybrid,
                 "composite": CG.composite, "raster_pass": RG.raster_pass,
                 "shade_stack": SG.shade_stack,
                 "frame_crowd": FG.render_megakernel_crowd,
                 "stream_crowd": FS.render_megakernel_stream_crowd,
-                "shade_stack_crowd": SG.shade_stack_crowd, "composite_crowd": CG.composite_crowd}
+                "shade_stack_crowd": SG.shade_stack_crowd, "composite_crowd": CG.composite_crowd,
+                "composite_quad": Launches(CG.composite, "quad_launches"),
+                "composite_crowd_quad": Launches(CG.composite_crowd, "quad_launches"),
+                "hybrid_crowd": FH.render_megakernel_hybrid_crowd}
     expected = {"main": {"frame": 1, "composite": 1},
                 "stream": {"stream": 1, "shade_stack": 1, "composite": 1},
                 "mxu": {"mxu": 1, "shade_stack": 1, "composite": 1},
                 "hybrid": {"hybrid": 1, "composite": 1},
                 "layered": {"composite": 1, "raster_pass": 7, "shade_stack": 1},
                 "per_pass": {"raster_pass": 7},
-                "default": {"frame": 1, "composite": 1}}
+                "parity_layered": {"composite_quad": 1, "raster_pass": 7, "shade_stack": 1},
+                "default": {"frame": 1, "composite": 1},
+                "parity": {"frame": 1, "composite_quad": 1}}
     mask = torch.zeros(j, dtype=torch.bool, device=dev)
     mask[2] = True
     target = torch.zeros((j, 4), device=dev)
@@ -1043,6 +1202,17 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     require(bool(phys.initialized) and bool(torch.isfinite(phys.position).all()),
             "default path: physics state")
     require(abs(phys.position[1, 1].item() - 2.0) > 1e-3, "default path: the dynamic body moves")
+    # the parity frame against the 4-tap composite: the same pose rendered
+    # with and without the model's quad tables
+    sim_p = steps["parity"].simulate(states["parity"], dt, track, breath)
+    no_quad = dataclasses.replace(model, atlas=dataclasses.replace(
+        model.atlas, mip_quad=None, flat_quad=None))
+    f_quad, f_4tap = (pipeline_gpu.render_frame_mega(
+        m, paths["parity"], dims, sim_p[7], sim_p[8], vp, eye, lights, uvs=sim_p[9],
+        mat_mod=sim_p[10])[0] for m in (model, no_quad))
+    par_err = (f_quad - f_4tap).abs().max().item()
+    phase("check", path="parity", against="4tap_composite", max_abs_err=par_err)
+    require(par_err <= PARITY_TOL, ("parity frame against the 4-tap composite", par_err))
 
     # 4b. physics on the rig: the card's trajectory against the CPU's (its
     # cost is measured last, phase 8)
@@ -1124,6 +1294,13 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     c_t0 = cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)
     c_k = kernel_ms(lambda: CG.composite(o_t, atlas, **ckw), 50, "composite_kernel")
     c_t = (c_t0 + cuda_ms(lambda: CG.composite_twin(o_t, atlas, **ckw), 10)) / 2
+    # the quad composite as the parity path launches it (both layers full
+    # res, bloom on), and on the large table
+    pkw = dict(half0=False, half1=False, with_bloom=True)
+    q_t0 = cuda_ms(lambda: CG.composite_twin(o_par, flat_quad, **pkw), 10)
+    q_k = kernel_ms(lambda: CG.composite(o_par, flat_quad, **pkw), 50, "composite_kernel")
+    q_t = (q_t0 + cuda_ms(lambda: CG.composite_twin(o_par, flat_quad, **pkw), 10)) / 2
+    q_big = kernel_ms(lambda: CG.composite(o_big, big_quad, **pkw), 50, "composite_kernel")
     zbuf = torch.ones((cfg.msaa_samples, dims.hp, dims.wp), device=dev)
 
     def raster_chain(fn, tabs=ptabs):
@@ -1152,6 +1329,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                                  for k, v in frame_ms.items()})
     phase("timing", frame_kernel_ms=f"{t_k:.4f}", frame_twin_ms=f"{t_t:.3f}",
           composite_ms=f"{c_k:.4f}", composite_twin_ms=f"{c_t:.4f}",
+          composite_quad_ms=f"{q_k:.4f}", composite_quad_twin_ms=f"{q_t:.4f}",
+          composite_quad_large_table_ms=f"{q_big:.4f}",
           raster_pass_ms=f"{r_k:.4f}", raster_pass_twin_ms=f"{r_t:.3f}",
           shade_stack_ms=f"{sh_k:.4f}", shade_stack_twin_ms=f"{sh_t:.3f}",
           **{f"{k}_{w}ms": f"{v[i]:.4f}" for k, v in new_ms.items()
@@ -1211,6 +1390,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     b_stream = stream_bound(st, raw_k, s)
     half_layers = int(cfg.albedo_half_occluded) + int(cfg.albedo_half_visible)
     b_comp = composite_bound(o_t, atlas, img_k, seed_k, half_layers)
+    b_quad = quad_bound(o_par, flat_quad, *CG.composite(o_par, flat_quad, **pkw), (False, False))
+    b_quad_big = quad_bound(o_big, big_quad, *CG.composite(o_big, big_quad, **pkw),
+                            (False, False))
     b_raster, touched_frac = raster_bound(ptabs)
     # a_eff of both layers everywhere; a layer's other channels only in the
     # 32x128 tiles where it is present (elsewhere its output is fixed); all
@@ -1219,7 +1401,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     b_shade = shade_bound(stack, tables, s_k)
     phase("bounds", raster_touched_band_frac=touched_frac, shade_present_tiles=present,
           tiles=dims.b, **{k: f"{v[0]:.4f}ms/{v[1]}" for k, v in (
-              ("frame", b_frame), ("composite", b_comp), ("raster_pass", b_raster),
+              ("frame", b_frame), ("composite", b_comp), ("composite_quad", b_quad),
+              ("composite_quad_large_table", b_quad_big), ("raster_pass", b_raster),
               ("shade_stack", b_shade), ("hybrid", b_hybrid), ("mxu", b_mxu),
               ("stream", b_stream))})
 
@@ -1318,6 +1501,12 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
          "launches": launches["main"]["composite"], "max_abs_err": comp_err, "ms": c_k,
          "plain_ms": c_t, "bound_ms": b_comp[0], "bound_by": b_comp[1],
          "library_ms": None},
+        {"name": "composite_quad", "route": "cuda",
+         "source": "reze_tpu_torch/kernels/csrc/composite.cu",
+         "replaces": "reze_tpu/kernels/composite_tpu.py:54",
+         "launches": launches["parity"]["composite_quad"],
+         "max_abs_err": max(quad_err, crowd_err["composite_crowd_quad"]), "ms": q_k,
+         "plain_ms": q_t, "bound_ms": b_quad[0], "bound_by": b_quad[1], "library_ms": None},
         {"name": "raster_pass", "route": "cuda",
          "source": "reze_tpu_torch/kernels/csrc/raster.cu",
          "replaces": "reze_tpu/kernels/raster_tpu.py:316",
@@ -1346,7 +1535,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             ("frame_megakernel_crowd", "frame.cu", "frame_tpu.py:704"),
             ("composite_crowd", "composite.cu", "composite_tpu.py:110"),
             ("stream_megakernel_crowd", "frame_stream.cu", "frame_stream.py:498"),
-            ("shade_stack_crowd", "shade_stack.cu", "shade_tpu.py:353")):
+            ("shade_stack_crowd", "shade_stack.cu", "shade_tpu.py:353"),
+            ("hybrid_megakernel_crowd", "frame_hybrid.cu", "frame_hybrid.py:424")):
         key = name.replace("_megakernel", "")
         b_c = crowd["calls"][key][3]
         kernels.append(

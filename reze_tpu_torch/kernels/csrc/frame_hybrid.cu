@@ -1,6 +1,7 @@
 // Hybrid frame megakernel for sm_90a: the seven raster passes in 128-pair
 // chunks with exact-z winners, the two-layer fragment stack and the
-// toon/rim shade of one 8x128 tile per thread block.
+// toon/rim shade of one 8x128 tile per thread block, for one character or
+// a crowd (grid (tiles, characters)).
 //
 // Replaces reze_tpu/kernels/frame_hybrid.py::render_megakernel_hybrid
 // (Pallas, plane evaluation as matrix products over a bfloat16 split). Its
@@ -33,6 +34,13 @@
 // chunk, not per 32-pair group, the exact-z winner and the analytic mode's
 // centre-gated depth write.
 //
+// A crowd launch adds the character as blockIdx.y, as frame.cu's does:
+// each character has its own pair rows (rows_stride floats apart, every
+// block 16-byte aligned for the bulk copies), starts and counts, eye
+// position (misc) and inverse view-projection, and writes its own output;
+// the shade tables are shared. One character is the launch with one row of
+// blocks, compiled without the per-character offsets (CROWD false).
+//
 // Compiled with -fmad=false: each product rounds on its own, as in the
 // twin, so coverage and z-ties decide the same way.
 
@@ -45,16 +53,17 @@ namespace reze {
 namespace {
 
 struct HybridArgs {
-  const float* rows;
-  const int* starts;  // (7, B)
-  const int* counts;  // (7, B)
-  float* out;         // (18, hp, wp)
-  ShadeParams sp;
+  const float* rows;  // per character (N, ROW_W), rows_stride floats apart
+  size_t rows_stride;
+  const int* starts;  // (C, 7, B)
+  const int* counts;  // (C, 7, B)
+  float* out;         // (C, 18, hp, wp)
+  ShadeParams sp;     // misc (C, 8) and inv_vp (C, 4, 4) per character
 };
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.f), 1.f); }
 
-template <int NS, bool ANALYTIC>
+template <int NS, bool ANALYTIC, bool CROWD>
 __global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_bytes);
@@ -62,6 +71,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
   const int tid = threadIdx.x;
   const int px = tid % TILE_W, py0 = tid / TILE_W;
   const int bx_n = a.sp.wp / TILE_W, b = blockIdx.x;
+  if constexpr (CROWD) {  // this block's character (64-bit offsets)
+    const size_t c = blockIdx.y, n_tiles = (size_t)bx_n * (a.sp.hp / TILE_H);
+    a.rows += c * a.rows_stride;
+    a.starts += c * N_PASSES * n_tiles;
+    a.counts += c * N_PASSES * n_tiles;
+    a.out += c * (2 * O_CH) * (size_t)a.sp.hp * a.sp.wp;
+    a.sp.misc += c * 8;
+    a.sp.inv_vp += c * 16;
+  }
   const int bi = b / bx_n, bj = b % bx_n;
   const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
   const float xs = (float)px + 0.5f;  // tile-local
@@ -246,43 +264,56 @@ __global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
                              y0f);
 }
 
-template <int NS, bool ANALYTIC>
-void launch_hybrid(const HybridArgs& a, int n_tiles, cudaStream_t stream) {
+template <int NS, bool ANALYTIC, bool CROWD>
+void launch_as(const HybridArgs& a, dim3 grid, cudaStream_t stream) {
   static bool configured = false;  // the attribute holds for the process
   if (!configured) {
-    cudaFuncSetAttribute(hybrid_kernel<NS, ANALYTIC>,
+    cudaFuncSetAttribute(hybrid_kernel<NS, ANALYTIC, CROWD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TileSmem));
     configured = true;
   }
-  hybrid_kernel<NS, ANALYTIC><<<n_tiles, NTHREADS, sizeof(TileSmem), stream>>>(a);
+  hybrid_kernel<NS, ANALYTIC, CROWD><<<grid, NTHREADS, sizeof(TileSmem), stream>>>(a);
+}
+
+template <int NS, bool ANALYTIC>
+void launch_hybrid(const HybridArgs& a, int n_tiles, int n_chars, cudaStream_t stream) {
+  if (n_chars == 1)
+    launch_as<NS, ANALYTIC, false>(a, dim3(n_tiles), stream);
+  else
+    launch_as<NS, ANALYTIC, true>(a, dim3(n_tiles, n_chars), stream);
 }
 
 }  // namespace
 }  // namespace reze
 
-extern "C" int reze_frame_hybrid(const float* rows, const int* starts, const int* counts,
-                                 const float* knot, int kr, const float* tex, int kt,
-                                 int tex_cols, const float* edge, int ke, const float* ldir,
-                                 const float* lcol, const float* misc, const float* inv_vp,
-                                 float* out, int hp, int wp, int n_samples, int analytic,
-                                 int n_levels, void* stream) {
+// the arguments of frame.cu's reze_frame: n_chars characters, rows_stride
+// floats between their pair rows (a multiple of 4); starts, counts, misc,
+// inv_vp and out stacked per character
+extern "C" int reze_frame_hybrid(const float* rows, long long rows_stride, const int* starts,
+                                 const int* counts, const float* knot, int kr,
+                                 const float* tex, int kt, int tex_cols, const float* edge,
+                                 int ke, const float* ldir, const float* lcol,
+                                 const float* misc, const float* inv_vp, float* out, int hp,
+                                 int wp, int n_samples, int analytic, int n_levels, int n_chars,
+                                 void* stream) {
   using namespace reze;
-  HybridArgs a{rows, starts, counts, out,
+  HybridArgs a{rows, (size_t)rows_stride, starts, counts, out,
                ShadeParams{knot, tex, edge, ldir, lcol, misc, inv_vp, kr, kt, tex_cols, ke,
                            n_levels, hp, wp}};
   const int n_tiles = (hp / TILE_H) * (wp / TILE_W);
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_tiles <= 0 || kr > MAX_GROUPS || kt > MAX_GROUPS || ke > MAX_GROUPS
-      || tex_cols > MAX_TEX_COLS || ((uintptr_t)rows & 15) || ((uintptr_t)out & 15))
+  if (n_tiles <= 0 || n_chars <= 0 || n_chars > 65535 || rows_stride < 0 || (rows_stride & 3)
+      || kr > MAX_GROUPS || kt > MAX_GROUPS || ke > MAX_GROUPS || tex_cols > MAX_TEX_COLS
+      || ((uintptr_t)rows & 15) || ((uintptr_t)out & 15))
     return (int)cudaErrorInvalidValue;
   if (analytic) {
-    launch_hybrid<1, true>(a, n_tiles, st);
+    launch_hybrid<1, true>(a, n_tiles, n_chars, st);
   } else {
     switch (n_samples) {
-      case 1: launch_hybrid<1, false>(a, n_tiles, st); break;
-      case 2: launch_hybrid<2, false>(a, n_tiles, st); break;
-      case 3: launch_hybrid<3, false>(a, n_tiles, st); break;
-      case 4: launch_hybrid<4, false>(a, n_tiles, st); break;
+      case 1: launch_hybrid<1, false>(a, n_tiles, n_chars, st); break;
+      case 2: launch_hybrid<2, false>(a, n_tiles, n_chars, st); break;
+      case 3: launch_hybrid<3, false>(a, n_tiles, n_chars, st); break;
+      case 4: launch_hybrid<4, false>(a, n_tiles, n_chars, st); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -40,16 +40,16 @@ SIGNATURES = {
                    _P, _P, _P, _P,  # ldir, lcol, misc, inv_vp
                    _P, _I, _I, _I, _I, _I,  # out, hp, wp, n_samples, analytic, n_levels
                    _I, _P],  # n_chars, stream
-    "reze_frame_hybrid": [_P, _P, _P,  # rows, starts, counts
+    "reze_frame_hybrid": [_P, _L, _P, _P,  # rows, rows_stride, starts, counts
                           _P, _I, _P, _I, _I, _P, _I,  # knot, kr, tex, kt, tex_cols, edge, ke
                           _P, _P, _P, _P,  # ldir, lcol, misc, inv_vp
                           _P, _I, _I, _I, _I, _I,  # out, hp, wp, n_samples, analytic, n_levels
-                          _P],  # stream
+                          _I, _P],  # n_chars, stream
     "reze_frame_mxu": [_P, _P, _P,  # rows, starts, counts
                        _P, _I, _I, _I, _P],  # out, hp, wp, n_samples, stream
     "reze_frame_stream": [_P, _L, _P,  # rows, rows_stride, bounds
                           _P, _I, _I, _I, _I, _P],  # out, hp, wp, n_samples, n_chars, stream
-    "reze_composite": [_P, _P, _L, _P, _P,  # o, atlas, n_texels, img, half
+    "reze_composite": [_P, _P, _L, _I, _P, _P,  # o, atlas, n_texels, quad, img, half
                        _I, _I, _I, _I, _I,  # hp, wp, half0, half1, with_bloom
                        _I, _P],  # n_chars, stream
     "reze_raster": [_P, _P, _I, _P, _P,  # tab, ids, n_ids, starts, counts

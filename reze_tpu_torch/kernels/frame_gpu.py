@@ -231,8 +231,9 @@ def render_megakernel(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
             tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp,
             wp=wp, n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias,
             analytic=analytic)
-    out = _launch_frame(tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp,
-                        wp, n_samples, use_mips, lod_bias, analytic, None)
+    out = launch_tile_kernel("reze_frame", tables, shade_tables, lights, rim_intensity,
+                             eye_pos, inv_vp, hp, wp, n_samples, use_mips, lod_bias, analytic,
+                             None)
     render_megakernel.launches += 1
     return out
 
@@ -254,8 +255,9 @@ def render_megakernel_crowd(tables: FrameTables, shade_tables: SG.ShadeTables, l
         return render_megakernel_crowd_twin(
             tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp, wp=wp,
             n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
-    out = _launch_frame(tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp,
-                        wp, n_samples, use_mips, lod_bias, analytic, tables.rows.shape[0])
+    out = launch_tile_kernel("reze_frame", tables, shade_tables, lights, rim_intensity,
+                             eye_pos, inv_vp, hp, wp, n_samples, use_mips, lod_bias, analytic,
+                             tables.rows.shape[0])
     render_megakernel_crowd.launches += 1
     return out
 
@@ -263,12 +265,14 @@ def render_megakernel_crowd(tables: FrameTables, shade_tables: SG.ShadeTables, l
 render_megakernel_crowd.launches = 0
 
 
-def _launch_frame(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
-                  rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, hp: int, wp: int,
-                  n_samples: int, use_mips: bool, lod_bias, analytic: bool,
-                  n_chars: int | None) -> Tensor:
-    """Check the inputs and launch ``csrc/frame.cu`` over one character
-    (``n_chars`` None) or a crowd of ``n_chars``."""
+def launch_tile_kernel(entry: str, tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                       rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, hp: int, wp: int,
+                       n_samples: int, use_mips: bool, lod_bias, analytic: bool,
+                       n_chars: int | None) -> Tensor:
+    """Check the inputs and launch the kernel of C entry point ``entry``
+    (``reze_frame``, ``csrc/frame.cu``, or ``reze_frame_hybrid``, whose
+    arguments are the same) over one character (``n_chars`` None) or a
+    crowd of ``n_chars``."""
     if analytic:
         n_samples = 1
     check_frame_tables(tables, hp, wp, n_samples, n_chars)
@@ -284,7 +288,7 @@ def _launch_frame(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
     lead = () if n_chars is None else (n_chars,)
     out = torch.empty(lead + (2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_frame(
+    err = getattr(cuda_lib.library(), entry)(
         rows.data_ptr(), stride, tables.starts.data_ptr(), tables.counts.data_ptr(),
         shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
         shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
@@ -293,7 +297,7 @@ def _launch_frame(tables: FrameTables, shade_tables: SG.ShadeTables, lights,
         lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
         out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels, n_chars or 1,
         torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(err, "reze_frame")
+    cuda_lib.check(err, entry)
     return out
 
 
@@ -531,8 +535,16 @@ def render_megakernel_crowd_twin(tables: FrameTables, shade_tables: SG.ShadeTabl
                                  analytic: bool = False) -> Tensor:
     """Plain torch version of :func:`render_megakernel_crowd`: the twin per
     character."""
-    return torch.stack([render_megakernel_twin(
+    return per_character(render_megakernel_twin, tables, shade_tables, lights, rim_intensity,
+                         eye_pos, inv_vp, hp=hp, wp=wp, n_samples=n_samples, use_mips=use_mips,
+                         lod_bias=lod_bias, analytic=analytic)
+
+
+def per_character(twin, tables: FrameTables, shade_tables: SG.ShadeTables, lights,
+                  rim_intensity: float, eye_pos: Tensor, inv_vp: Tensor, **kw) -> Tensor:
+    """A crowd twin: the single-character ``twin`` on each character's
+    tables, eye position and inverse view-projection, stacked."""
+    return torch.stack([twin(
         FrameTables(tables.rows[c], tables.starts[c], tables.counts[c], tables.overflow[c]),
-        shade_tables, lights, rim_intensity, eye_pos[c], inv_vp[c], hp=hp, wp=wp,
-        n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
+        shade_tables, lights, rim_intensity, eye_pos[c], inv_vp[c], **kw)
         for c in range(tables.rows.shape[0])])

@@ -25,6 +25,10 @@ writes the same (2*O_CH, hp, wp) shade outputs. Per 8x128 tile and pass:
   pushed onto the stack (:func:`frame_gpu.push_pass`); after the last
   pass both layers are shaded as in the frame kernel.
 
+:func:`render_megakernel_hybrid_crowd` runs the same kernel over a crowd,
+its tables, eye positions and inverse view-projections with a leading
+character axis, as :func:`frame_gpu.render_megakernel_crowd` does.
+
 The TPU kernel evaluates planes with matrix products over a three-way
 bfloat16 split of the coefficients; the port evaluates them in float32
 (``tests/test_torch_hybrid.py`` bounds the difference).
@@ -35,7 +39,6 @@ from __future__ import annotations
 import torch
 
 from ..render.raster import SAMPLE_OFFSETS
-from . import cuda_lib
 from . import frame_gpu as FG
 from . import shade_gpu as SG
 
@@ -59,31 +62,39 @@ def render_megakernel_hybrid(tables: FG.FrameTables, shade_tables: SG.ShadeTable
         return render_megakernel_hybrid_twin(
             tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp, wp=wp,
             n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
-    if analytic:
-        n_samples = 1
-    FG.check_frame_tables(tables, hp, wp, n_samples)
-    if tables.rows.data_ptr() % 16:
-        raise ValueError("rows: the kernel copies them in 16-byte units; need an aligned tensor")
-    dev = tables.rows.device
-    lcol, misc = SG.shade_inputs(shade_tables, lights, rim_intensity, eye_pos, lod_bias)
-    SG.check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev)
-    n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
-    out = torch.empty((2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_frame_hybrid(
-        tables.rows.data_ptr(), tables.starts.data_ptr(), tables.counts.data_ptr(),
-        shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
-        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
-        shade_tables.tex_tab.shape[1],
-        shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
-        lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
-        out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(err, "reze_frame_hybrid")
+    out = FG.launch_tile_kernel("reze_frame_hybrid", tables, shade_tables, lights,
+                                rim_intensity, eye_pos, inv_vp, hp, wp, n_samples, use_mips,
+                                lod_bias, analytic, None)
     render_megakernel_hybrid.launches += 1
     return out
 
 
 render_megakernel_hybrid.launches = 0
+
+
+def render_megakernel_hybrid_crowd(tables: FG.FrameTables, shade_tables: SG.ShadeTables,
+                                   lights, rim_intensity: float, eye_pos: Tensor,
+                                   inv_vp: Tensor, *, hp: int, wp: int, n_samples: int,
+                                   use_mips: bool = False,
+                                   lod_bias: tuple[float, float] = (0.0, 0.0),
+                                   analytic: bool = False) -> Tensor:
+    """A crowd's tables (rows (C, N, ROW_W), starts and counts (C,
+    N_PASSES, B)), eye positions (C, 3) and inverse view-projections (C, 4,
+    4) -> (C, 2*O_CH, hp, wp) in one launch of ``csrc/frame_hybrid.cu``;
+    the shade tables are shared. CPU tensors run
+    :func:`render_megakernel_hybrid_crowd_twin`."""
+    if not tables.rows.is_cuda:
+        return render_megakernel_hybrid_crowd_twin(
+            tables, shade_tables, lights, rim_intensity, eye_pos, inv_vp, hp=hp, wp=wp,
+            n_samples=n_samples, use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)
+    out = FG.launch_tile_kernel("reze_frame_hybrid", tables, shade_tables, lights,
+                                rim_intensity, eye_pos, inv_vp, hp, wp, n_samples, use_mips,
+                                lod_bias, analytic, tables.rows.shape[0])
+    render_megakernel_hybrid_crowd.launches += 1
+    return out
+
+
+render_megakernel_hybrid_crowd.launches = 0
 
 
 def render_megakernel_hybrid_twin(tables: FG.FrameTables, shade_tables: SG.ShadeTables,
@@ -202,3 +213,16 @@ def render_megakernel_hybrid_twin(tables: FG.FrameTables, shade_tables: SG.Shade
 
     return FG.shade_frame(stack, shade_tables, lights, lcol, misc, inv_vp, x0f, y0f, hp, wp,
                        use_mips)
+
+
+def render_megakernel_hybrid_crowd_twin(tables: FG.FrameTables, shade_tables: SG.ShadeTables,
+                                        lights, rim_intensity: float, eye_pos: Tensor,
+                                        inv_vp: Tensor, *, hp: int, wp: int, n_samples: int,
+                                        use_mips: bool = False,
+                                        lod_bias: tuple[float, float] = (0.0, 0.0),
+                                        analytic: bool = False) -> Tensor:
+    """Plain torch version of :func:`render_megakernel_hybrid_crowd`: the
+    twin per character."""
+    return FG.per_character(render_megakernel_hybrid_twin, tables, shade_tables, lights,
+                            rim_intensity, eye_pos, inv_vp, hp=hp, wp=wp, n_samples=n_samples,
+                            use_mips=use_mips, lod_bias=lod_bias, analytic=analytic)

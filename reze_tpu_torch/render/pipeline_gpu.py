@@ -5,21 +5,28 @@
   (``"group"``, the main path), the hybrid kernel (``"hybrid"``, its shade
   inline like the frame kernel's), the mxu kernel then the stack shade
   (``"mxu"``), or the stream kernel, the plain torch compose of its raw
-  winners and the stack shade (``"stream"``); then the composite kernel
-  and the bloom finish (nearest albedo only).
+  winners and the stack shade (``"stream"``); then the finish
+  (:func:`_finish_frame`).
 * :func:`render_frame_fast`, the per-pass renderer: seven launches of the
   raster-pass kernel with the depth buffer carried across passes, then
-  either the two-layer stack, the stack-shade kernel and the composite
-  kernel (layered), or per-pass shading blended in draw order and the
+  either the two-layer stack, the stack-shade kernel and the finish
+  (layered), or per-pass shading blended in draw order and the
   channel-last bloom (non-layered). Like the reference it always rasterizes
   with ``cfg.msaa_samples`` samples, never reads ``cfg.rasterizer``, and
   on the non-layered branch samples level 0 nearest and skips material
   morphs.
 * :func:`render_crowd_mega`, the crowd's megakernel path: the same table
   build with a leading character axis on every tensor, then one launch
-  over the whole crowd of the frame kernel (``"group"``) or of the stream
-  kernel, the compose and the stack shade (``"stream"``); then one
-  composite launch and the bloom finish over (C, 3, h, w).
+  over the whole crowd of the frame kernel (``"group"``, ``"mxu"``), the
+  hybrid kernel (``"hybrid"``) or the stream kernel, the compose and the
+  stack shade (``"stream"``); then the finish over (C, 3, h, w).
+
+The finish, as the reference routes it (``pipeline_tpu._finish_frame``,
+``_finish_frame_crowd``): the composite kernel with nearest albedo, or
+with bilinear albedo (``albedo_bilinear``) from the quad table in one
+gather per pixel, then the bloom; bilinear albedo on a model without quad
+tables goes through the plain torch 4-tap composite
+(:func:`_composite_shaded`) instead.
 """
 
 from __future__ import annotations
@@ -144,15 +151,16 @@ def _apply_mat_mod(tables: SG.ShadeTables, mat_mod) -> SG.ShadeTables:
     return tables._replace(push_tab=tab)
 
 
-def _composite_shaded_kernel(o: Tensor, atlas_flat: Tensor, dims: FastDims,
+def _composite_shaded_kernel(o: Tensor, atlas: Tensor, dims: FastDims,
                              cfg: EngineConfig) -> Tensor:
-    """Composite kernel, then the bloom finish in plain torch: horizontal
-    half of the 2x2 box, threshold extract, 5-tap blur, 2x upsample, add,
-    clip. -> (H, W, 3); a crowd's o (C, 2*O_CH, hp, wp) goes through one
-    composite launch and gives (C, H, W, 3)."""
+    """Composite kernel (nearest with an (N, 4) atlas, quad with an (S,
+    16) table), then the bloom finish in plain torch: horizontal half of
+    the 2x2 box, threshold extract, 5-tap blur, 2x upsample, add, clip. ->
+    (H, W, 3); a crowd's o (C, 2*O_CH, hp, wp) goes through one composite
+    launch and gives (C, H, W, 3)."""
     kw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
               with_bloom=cfg.enable_bloom)
-    img_cf, half = (CG.composite_crowd if o.dim() == 4 else CG.composite)(o, atlas_flat, **kw)
+    img_cf, half = (CG.composite_crowd if o.dim() == 4 else CG.composite)(o, atlas, **kw)
     lead = o.shape[:-3]
     y, x = len(lead) + 1, len(lead) + 2  # the row and column axes
     img_cf = img_cf[..., :dims.height, :dims.width]
@@ -166,6 +174,95 @@ def _composite_shaded_kernel(o: Tensor, atlas_flat: Tensor, dims: FastDims,
     return torch.clamp(img_cf, 0.0, 1.0).movedim(-3, -1)
 
 
+def _finish_frame(o: Tensor, model: ModelArrays, dims: FastDims, cfg: EngineConfig,
+                  use_mips: bool) -> Tensor:
+    """Shade outputs (2*O_CH, hp, wp), or a crowd's (C, 2*O_CH, hp, wp), ->
+    frames (H, W, 3) or (C, H, W, 3) with albedo, bloom and clip. The
+    albedo comes from the mip chain with ``use_mips``, else from level 0;
+    bilinear albedo reads the quad table of the same texels, or without
+    one goes through the 4-tap composite."""
+    atlas = model.atlas
+    flat = atlas.mip_flat if use_mips else atlas.texels.reshape(-1, 4)
+    quad = atlas.mip_quad if use_mips else atlas.flat_quad
+    if cfg.albedo_bilinear and quad is None:
+        return _composite_shaded(o, flat, dims, cfg)
+    return _composite_shaded_kernel(o, (quad if cfg.albedo_bilinear else flat).contiguous(),
+                                    dims, cfg)
+
+
+def _index_planes(o: Tensor, base: int):
+    """A layer's (tex, fx, fy) planes of shade outputs (..., 2*O_CH, hp,
+    wp)."""
+    return (o[..., base + SG.O_TEX, :, :], o[..., base + SG.O_FX, :, :],
+            o[..., base + SG.O_FY, :, :])
+
+
+def _fetch_albedo(atlas_flat: Tensor, o: Tensor, base: int, *, half_res: bool) -> Tensor:
+    """Bilinear albedo of one layer from its texel index channels -> (...,
+    hp, wp, 3) (``pipeline_tpu._fetch_albedo`` with ``bilinear``; its
+    nearest mode is the composite kernel's): four gathers at ``tex``, ``+
+    dx``, ``+ dy`` and ``+ dx + dy`` lerped by (fx, fy). A half-res layer
+    gathers at the even-row, even-column pixel of each 2x2 block; the
+    weights and the validity stay the pixel's own."""
+    tex, fx, fy = _index_planes(o, base)
+    dxdy = o[..., base + SG.O_DXDY, :, :]
+    dx = torch.remainder(dxdy, 2.0)
+    dy = (dxdy - dx) * 0.5
+    n = atlas_flat.shape[0]
+
+    def g(idx_f):
+        idx = torch.clamp(idx_f, min=0.0).to(torch.int64)
+        if half_res:
+            idx = CG.even_source(idx)
+        return atlas_flat[torch.clamp(idx, max=n - 1)][..., :3].to(torch.float32) * (1.0 / 255.0)
+
+    wx, wy = fx[..., None], fy[..., None]
+    texel = (g(tex) * (1 - wx) * (1 - wy) + g(tex + dx) * wx * (1 - wy)
+             + g(tex + dy) * (1 - wx) * wy + g(tex + dx + dy) * wx * wy)
+    return torch.where((tex >= 0.0)[..., None], texel, 1.0)
+
+
+def _fetch_albedo_quad(quad_flat: Tensor, o: Tensor, base: int, *, half_res: bool) -> Tensor:
+    """Bilinear albedo of one layer from one gather of its quad row ->
+    (..., hp, wp, 3) (``pipeline_tpu._fetch_albedo_quad``): the row at
+    ``tex`` (the source pixel's when half-res) holds the 2x2 footprint,
+    lerped by the pixel's own (fx, fy) in :func:`_fetch_albedo`'s float
+    order."""
+    tex, fx, fy = _index_planes(o, base)
+    idx = torch.clamp(tex, min=0.0).to(torch.int64)
+    if half_res:
+        idx = CG.even_source(idx)
+    q = quad_flat[torch.clamp(idx, max=quad_flat.shape[0] - 1)].to(torch.float32) * (1.0 / 255.0)
+    wx, wy = fx[..., None], fy[..., None]
+    texel = (q[..., 0:3] * (1 - wx) * (1 - wy) + q[..., 4:7] * wx * (1 - wy)
+             + q[..., 8:11] * (1 - wx) * wy + q[..., 12:15] * wx * wy)
+    return torch.where((tex >= 0.0)[..., None], texel, 1.0)
+
+
+def _composite_shaded(o: Tensor, atlas_flat: Tensor, dims: FastDims, cfg: EngineConfig,
+                      quad: Tensor | None = None) -> Tensor:
+    """The composite with bilinear albedo in plain torch
+    (``pipeline_tpu._composite_shaded``): shade outputs (..., 2*O_CH, hp,
+    wp) -> (..., H, W, 3) with albedo (:func:`_fetch_albedo`, or
+    :func:`_fetch_albedo_quad` with a quad table), the two layers blended
+    back to front, the channel-first bloom and the clip. A crowd's leading
+    axis runs batched, as the reference's ``vmap``."""
+    c = [torch.zeros(o.shape[:-3] + o.shape[-2:], device=o.device) for _ in range(3)]
+    for layer, half in ((0, cfg.albedo_half_occluded), (1, cfg.albedo_half_visible)):
+        base = layer * SG.O_CH
+        albedo = (_fetch_albedo(atlas_flat, o, base, half_res=half) if quad is None
+                  else _fetch_albedo_quad(quad, o, base, half_res=half))
+        rim = o[..., base + SG.O_RIM, :, :]
+        a = o[..., base + SG.O_AEFF, :, :]
+        na = 1.0 - a
+        for ch in range(3):
+            c[ch] = (albedo[..., ch] * o[..., base + SG.O_LR + ch, :, :] + rim) * a + c[ch] * na
+    img_cf = torch.stack(c, -3)[..., :dims.height, :dims.width]
+    if cfg.enable_bloom:
+        img_cf = post.apply_bloom_cf(img_cf, cfg.bloom_threshold, cfg.bloom_intensity)
+    return torch.clamp(img_cf, 0.0, 1.0).movedim(-3, -1)
+
+
 def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
                       pos: Tensor, nrm: Tensor, view_proj: Tensor, eye_pos: Tensor,
                       lights: Lights, uvs: Tensor | None = None, mat_mod=None,
@@ -175,10 +272,6 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     the reference routes it -> (frame (H, W, 3), pair_overflow). The
     stream and mxu kernels always take ``cfg.msaa_samples`` samples; the
     group and hybrid kernels take one in analytic mode."""
-    if cfg.albedo_bilinear:
-        raise NotImplementedError(
-            "the megakernel path with bilinear albedo needs the quad composite, which "
-            "is not ported (ROADMAP queue 1, item 6)")
     inv_vp = m3.mat4_inverse(view_proj).contiguous()
     tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
         model.materials, model.atlas)
@@ -207,9 +300,7 @@ def render_frame_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
             shaded = mega(ft, *shade_args, hp=dims.hp, wp=dims.wp,
                           n_samples=1 if analytic else cfg.msaa_samples, analytic=analytic,
                           **skw)
-    flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
-    img = _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg)
-    return img, overflow
+    return _finish_frame(shaded, model, dims, cfg, use_mips), overflow
 
 
 def render_crowd_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
@@ -222,18 +313,10 @@ def render_crowd_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     3), ``view_proj`` (C, 4, 4), ``eye_pos`` (C, 3) and, when given,
     ``uvs`` (C, V, 2) and the material-morph factors (C, M) per character
     -> (frames (C, H, W, 3), pair_overflow (C,)). ``"stream"`` runs the
-    stream kernel, the compose and the stack shade; every other rasterizer
-    but ``"hybrid"`` runs the frame kernel, ``"mxu"`` included, as in the
-    reference. Each character's pair tables take its own material-morph
-    alphas; the kernels shade with the shared tables."""
-    if cfg.albedo_bilinear:
-        raise NotImplementedError(
-            "the crowd with bilinear albedo needs the quad composite, which is not ported "
-            "(ROADMAP queue 1, item 6)")
-    if cfg.rasterizer == "hybrid":
-        raise NotImplementedError(
-            "the crowd on the hybrid kernel needs its batched mode, which is not ported "
-            "(ROADMAP queue 2, row B5)")
+    stream kernel, the compose and the stack shade; ``"hybrid"`` the hybrid
+    kernel; every other rasterizer the frame kernel, ``"mxu"`` included, as
+    in the reference. Each character's pair tables take its own
+    material-morph alphas; the kernels shade with the shared tables."""
     inv_vp = m3.mat4_inverse(view_proj).contiguous()
     tables = shade_tables if shade_tables is not None else SG.pack_shade_tables(
         model.materials, model.atlas)
@@ -251,12 +334,12 @@ def render_crowd_mega(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     else:
         ft = _build_group_tables(model, cfg, dims, pushed, pos, nrm, view_proj, uvs)
         analytic = cfg.msaa_mode == "analytic"
-        shaded = FG.render_megakernel_crowd(
-            ft, *shade_args, hp=dims.hp, wp=dims.wp,
-            n_samples=1 if analytic else cfg.msaa_samples, analytic=analytic, **skw)
+        mega = (FH.render_megakernel_hybrid_crowd if cfg.rasterizer == "hybrid"
+                else FG.render_megakernel_crowd)
+        shaded = mega(ft, *shade_args, hp=dims.hp, wp=dims.wp,
+                      n_samples=1 if analytic else cfg.msaa_samples, analytic=analytic, **skw)
         overflow = ft.overflow
-    flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
-    return _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg), overflow
+    return _finish_frame(shaded, model, dims, cfg, use_mips), overflow
 
 
 def pass_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims, pos: Tensor,
@@ -307,10 +390,6 @@ def render_frame_fast(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
     """One frame through the per-pass renderer -> (frame (H, W, 3),
     pair_overflow summed over the seven passes). ``packed`` is read only by
     the non-layered branch."""
-    if cfg.layered_shading and cfg.albedo_bilinear:
-        raise NotImplementedError(
-            "the layered per-pass path with bilinear albedo needs the quad "
-            "composite, which is not ported (ROADMAP queue 1: other modes)")
     dev = pos.device
     inv_vp = m3.mat4_inverse(view_proj).contiguous()
     if cfg.layered_shading:
@@ -321,8 +400,7 @@ def render_frame_fast(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
         use_mips, lod_bias = _mip_args(cfg, model)
         shaded = SG.shade_stack(stack, tables, lights, cfg.rim_light_intensity, eye_pos,
                                 inv_vp, use_mips=use_mips, lod_bias=lod_bias)
-        flat = model.atlas.mip_flat if use_mips else model.atlas.texels.reshape(-1, 4)
-        return _composite_shaded_kernel(shaded, flat.contiguous(), dims, cfg), overflow
+        return _finish_frame(shaded, model, dims, cfg, use_mips), overflow
 
     atlas_stride = int(model.atlas.texels.shape[2])
     color = torch.zeros((dims.p, 3), device=dev)

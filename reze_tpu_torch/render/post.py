@@ -1,8 +1,9 @@
 """Bloom post-processing (counterpart of ``reze_tpu/render/post.py``):
 2x2 box downsample, threshold extract, separable 5-tap Gaussian with
 clamp-to-edge, bilinear upsample. The frame pipelines use the
-channel-first helpers; :func:`apply_bloom` is the channel-last chain of
-the non-layered per-pass renderer."""
+channel-first helpers (the composite kernel's finish, and
+:func:`apply_bloom_cf` after the 4-tap composite); :func:`apply_bloom` is
+the channel-last chain of the non-layered per-pass renderer."""
 
 from __future__ import annotations
 
@@ -67,6 +68,22 @@ def upsample2x(img: Tensor, out_h: int, out_w: int) -> Tensor:
     x = img.permute(2, 0, 1)[None]
     out = F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False)
     return out[0].permute(1, 2, 0)
+
+
+def downsample2x_cf(img: Tensor) -> Tensor:
+    """(..., C, H, W) -> (..., C, H//2, W//2) 2x2 box filter."""
+    h, w = img.shape[-2:]
+    x = img[..., :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(x.shape[:-2] + (h // 2, 2, w // 2, 2)).mean((-3, -1))
+
+
+def apply_bloom_cf(scene: Tensor, threshold: float, intensity: float) -> Tensor:
+    """The bloom chain on channel-first frames (..., 3, H, W), a crowd's
+    leading axis included: scene + upsampled blur of the thresholded
+    half-res scene."""
+    y, x = scene.dim() - 2, scene.dim() - 1  # positive: _up2_axis stacks after its axis
+    bloom = _blur_axis(_blur_axis(extract(downsample2x_cf(scene), threshold), x), y)
+    return scene + _up2_axis(_up2_axis(bloom, y), x) * intensity
 
 
 def apply_bloom(scene: Tensor, threshold: float, intensity: float) -> Tensor:

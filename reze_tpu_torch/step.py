@@ -9,15 +9,15 @@ and the model has bodies) and skinning. The frame goes, as in the reference, thr
 ``pipeline_gpu.render_frame_mega`` when ``use_megakernel`` and
 ``layered_shading`` are both on: the megakernel that ``cfg.rasterizer``
 names (``"group"``: the frame megakernel; ``"hybrid"``; ``"mxu"`` or
-``"stream"``, then the stack-shade kernel), then the composite kernel.
-Otherwise it goes through the per-pass renderer
-``pipeline_gpu.render_frame_fast`` (the raster-pass kernel, then the
-stack-shade and composite kernels or plain per-pass shading), which never
-reads ``cfg.rasterizer``.
+``"stream"``, then the stack-shade kernel), then the composite kernel
+(nearest albedo, or with ``albedo_bilinear`` the quad mode; the plain
+torch 4-tap composite on a model without quad tables). Otherwise it goes
+through the per-pass renderer ``pipeline_gpu.render_frame_fast`` (the
+raster-pass kernel, then the stack-shade kernel and the same composite, or
+plain per-pass shading), which never reads ``cfg.rasterizer``.
 
-Not ported yet, and refused rather than skipped (ROADMAP queue 1):
-bilinear albedo on the layered paths, which needs the quad composite, and
-the XLA-oracle renderer.
+Not ported yet, and refused rather than skipped (ROADMAP queue 1): the
+XLA-oracle renderer.
 """
 
 from __future__ import annotations
@@ -42,10 +42,6 @@ def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
     if cfg.renderer not in ("auto", "tpu"):
         raise NotImplementedError(
             f"EngineConfig renderer={cfg.renderer!r} is not ported yet (ROADMAP queue 1)")
-    if cfg.albedo_bilinear and cfg.layered_shading:
-        raise NotImplementedError(
-            "EngineConfig albedo_bilinear=True needs the quad composite, which is not "
-            "ported yet (ROADMAP queue 1)")
 
 
 def _uses_megakernel(cfg: EngineConfig) -> bool:

@@ -410,7 +410,8 @@ def random_shade_inputs(seed: int, n_groups: int = 3) -> dict:
     toon ramps and edge colours, three textures of odd sizes (the last one
     flagged untextured) with their dense mip chain, an eye position and an
     inverse view-projection. Keys: knot_tab, tex_tab, edge_tab,
-    atlas_stride, texels, mip_flat, eye_pos, inv_vp."""
+    atlas_stride, texels, mip_flat, mip_quad (the chain's quad footprints),
+    eye_pos, inv_vp."""
     rng = np.random.default_rng(seed)
     sizes = np.array([[8, 8], [7, 11], [16, 4]], np.int32)
     n, mh, mw = len(sizes), 16, 16
@@ -425,6 +426,7 @@ def random_shade_inputs(seed: int, n_groups: int = 3) -> dict:
         tex_tab=tex_tab[:n_groups],
         edge_tab=rng.uniform(0.0, 1.0, (n_groups, 3)).astype(np.float32),
         atlas_stride=mw, texels=texels, mip_flat=mip_flat,
+        mip_quad=build_quad_chain(mip_flat, mip_base, sizes),
         eye_pos=rng.normal(size=3).astype(np.float32),
         inv_vp=rng.normal(size=(4, 4)).astype(np.float32),
     )

@@ -6,9 +6,9 @@ main path's own inputs, for comparing checkouts of the repo on one card.
 Runs one process per ROOT, in the order given, each importing
 ``reze_tpu_torch`` from that checkout and building its kernels there. Per
 ROOT it prints one JSON line: the card's name and power limit, the ptxas
-register and spill lines of the frame, stream, stack-shade and composite
-kernels (when that process built them), and the median device ms of one
-launch of each (torch.profiler records, as ``chip_smoke.kernel_ms``) on
+register and spill lines of the frame, hybrid, stream, stack-shade and
+composite kernels (when that process built them), and the median device ms
+of one launch of each (torch.profiler records, as ``chip_smoke.kernel_ms``) on
 the synthetic model's main-path inputs (``chip_smoke.py`` phase 3d). Give
 the roots in turns (A B B A) so that drift shows. Needs a CUDA card.
 """
@@ -21,13 +21,14 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("frame_kernel", "stream_kernel", "shade_stack_kernel", "composite_kernel")
+KERNELS = ("frame_kernel", "hybrid_kernel", "stream_kernel", "shade_stack_kernel",
+           "composite_kernel")
 N_TIMED = 50
 
 
 def ptxas_lines(log: str) -> dict:
-    """{kernel entry (mangled): "registers ... / spills ..."} of the four
-    kernels from an nvcc -Xptxas -v log."""
+    """{kernel entry (mangled): "registers ... / spills ..."} of the
+    kernels named in KERNELS from an nvcc -Xptxas -v log."""
     out, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -55,6 +56,7 @@ def worker(root: str) -> dict:
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import cuda_lib
     from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import frame_hybrid as FH
     from reze_tpu_torch.kernels import frame_stream as FS
     from reze_tpu_torch.kernels import shade_gpu as SG
     from reze_tpu_torch.render import pipeline, pipeline_gpu
@@ -96,6 +98,7 @@ def worker(root: str) -> dict:
     ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
                with_bloom=cfg.enable_bloom)
     calls = {"frame_kernel": lambda: FG.render_megakernel(ft, *shade, **fkw),
+             "hybrid_kernel": lambda: FH.render_megakernel_hybrid(ft, *shade, **fkw),
              "stream_kernel": lambda: FS.render_megakernel_stream(
                  st, hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples),
              "shade_stack_kernel": lambda: SG.shade_stack(stack, *shade, use_mips=use_mips,

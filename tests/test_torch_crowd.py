@@ -32,8 +32,9 @@ on the CPU (kernels through their plain torch twins).
   tests' scenes, with per-character accumulators that run different
   substep counts in one frame: counts, overflows and accumulators exact,
   trajectories within 1e-4.
-* ``make_batched_step`` against the single step per character, chunked
-  against unchunked, and the refusals.
+* ``make_batched_step`` against the single step per character (also with
+  bilinear albedo), chunked against unchunked, and the refusal of the XLA
+  renderer.
 
 The JAX ``make_batched_step`` is not run whole: it compiles the full step
 with physics and the Pallas kernels in interpret mode, minutes on a CPU.
@@ -507,18 +508,31 @@ def test_per_character_clips_and_other_routes():
             assert torch.equal(frames[c], f1), (rast, c)
 
 
-@pytest.mark.parametrize("change", [{"rasterizer": "hybrid"}, {"albedo_bilinear": True},
-                                    {"renderer": "xla"}])
+@pytest.mark.parametrize("change", [{"renderer": "xla"}])
 def test_crowd_refusals(change):
     model = ptesting.make_test_model(device="cpu")
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
-    if change.get("rasterizer") == "hybrid":
-        m, c, d, pos, nrm, vps, eyes, lights, _, _ = _crowd_inputs(torch.zeros(C))
-        with pytest.raises(NotImplementedError, match="B5"):
-            pipeline_gpu.render_crowd_mega(m, cfg, d, pos, nrm, vps, eyes, lights)
-        return
     with pytest.raises(NotImplementedError):
         distrib.make_batched_step(model, cfg)
+
+
+@pytest.mark.parametrize("rasterizer", ["group", "stream", "hybrid"])
+def test_bilinear_batched_step_matches_single_step(rasterizer):
+    """The crowd step with bilinear albedo (the quad composite): each
+    character's frame its single step's. "group" and "stream" run batched;
+    "hybrid" steps the characters in turn, as the reference routes it
+    (``render_crowd_mega`` on "hybrid" is held in ``test_torch_parity.py``)."""
+    cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, rasterizer=rasterizer,
+                          albedo_bilinear=True)
+    model, states, args = _step_inputs(C, cfg)
+    crowd, single = distrib.make_batched_step(model, cfg), pmake_step(model, cfg)
+    dt, vps, eyes, lights, track, breath = args
+    _, frames = crowd(states, *args)
+    for c in range(C):
+        _, f1 = single(distrib._map(lambda x: x[c], states), dt, vps[c], eyes[c], lights,
+                       track, breath)
+        assert torch.equal(frames[c], f1), c
+        assert (f1.sum(-1) > 0.01).float().mean() > 0.05
 
 
 def test_crowd_chunk_must_divide():

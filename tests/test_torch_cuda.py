@@ -1,11 +1,15 @@
-"""The CUDA kernels against their plain torch twins on the card, and the
-whole step on the GPU against the step on the CPU, for the main path, the
-three other megakernels (``rasterizer`` "stream", "mxu", "hybrid"), both
-per-pass paths and the default configuration with physics; each path's
-step free of synchronising copies; the rigid-body solver on the card
-against its CPU run; the crowd's batched kernels against their twins at C
-= 3, and the crowd step on the card against the crowd step on the CPU, against
-the single step of each character, and free of synchronising copies. Marked ``cuda``: every test skips without a CUDA
+"""The CUDA kernels against their plain torch twins on the card (the
+composite in its nearest and quad modes), and the whole step on the GPU
+against the step on the CPU, for the main path, the three other
+megakernels (``rasterizer`` "stream", "mxu", "hybrid"), both per-pass
+paths, the default configuration with physics and the parity config
+(bilinear albedo through the quad composite, with and without physics);
+each path's step free of synchronising copies; the rigid-body solver on
+the card against its CPU run; the crowd's batched kernels (the hybrid's
+too) against their twins at C = 3, the hybrid crowd render against each
+character's single render, and the crowd step on the card against the
+crowd step on the CPU, against the single step of each character, and
+free of synchronising copies. Marked ``cuda``: every test skips without a CUDA
 device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
@@ -109,6 +113,46 @@ def test_composite_kernel_matches_twin(dev, half):
     torch.cuda.synchronize()
     assert (img - img_t).abs().max().item() <= 1e-6
     assert (seed - seed_t).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("crowd", [False, True])
+@pytest.mark.parametrize("half", [(False, False), (True, True), (False, True)])
+def test_quad_composite_kernel_matches_twin(dev, half, crowd):
+    """The quad mode (bilinear albedo from the seeded mip chain's quad
+    table), one character or three: within 1e-6 of the twin, and counted
+    as a quad launch."""
+    seeds = CROWD_SEEDS if crowd else CROWD_SEEDS[:1]
+    ft = ptesting.stack_tables([ptesting.random_frame_tables(s, N_TRIS, 32, WP, device=dev)
+                                for s in seeds])
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    o = FG.render_megakernel_crowd(ft, tables, lights, 0.45, eyes[:len(seeds)],
+                                   ivps[:len(seeds)], hp=32, wp=WP, n_samples=4, use_mips=True)
+    quad = torch.as_tensor(ptesting.random_shade_inputs(5)["mip_quad"], device=dev)
+    kw = dict(half0=half[0], half1=half[1], with_bloom=True)
+    fn, twin = ((CG.composite_crowd, CG.composite_crowd_twin) if crowd
+                else (CG.composite, CG.composite_twin))
+    o = o if crowd else o[0].contiguous()
+    before = (fn.launches, fn.quad_launches)
+    img, seed = fn(o, quad, **kw)
+    img_t, seed_t = twin(o, quad, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.quad_launches) == (before[0], before[1] + 1)
+    assert (img - img_t).abs().max().item() <= 1e-6
+    assert (seed - seed_t).abs().max().item() <= 1e-6
+
+
+def test_quad_composite_refuses_unaligned_table(dev):
+    """The quad mode reads each footprint as one 16-byte load: a table
+    that does not start on a 16-byte boundary is refused."""
+    o = torch.zeros((2 * SG.O_CH, 32, 128), device=dev)
+    quad = torch.as_tensor(ptesting.random_shade_inputs(5)["mip_quad"], device=dev)
+    buf = torch.zeros(quad.numel() + 4, dtype=torch.uint8, device=dev)
+    shifted = buf[4:].view(quad.shape)
+    shifted.copy_(quad)
+    with pytest.raises(ValueError, match="16-byte"):
+        CG.composite(o, shifted, half0=False, half1=False, with_bloom=True)
+    with pytest.raises(ValueError):  # not contiguous
+        CG.composite(o, quad.t().contiguous().t(), half0=False, half1=False, with_bloom=True)
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -300,9 +344,14 @@ def test_megakernel_wrappers_refuse_bad_inputs(dev):
         FS.render_megakernel_stream(st, hp=32, wp=128, n_samples=4)
 
 
+# the parity config: bench.py's parity_fps settings (bilinear albedo from
+# the quad table, level 0, full res)
+PARITY = {"albedo_bilinear": True, "albedo_mips": False, "albedo_half_visible": False,
+          "albedo_half_occluded": False}
 PATHS = {"main": {}, "stream": {"rasterizer": "stream"}, "mxu": {"rasterizer": "mxu"},
          "hybrid": {"rasterizer": "hybrid"}, "layered": {"use_megakernel": False},
-         "per_pass": {"layered_shading": False}, "default": {"enable_physics": True}}
+         "per_pass": {"layered_shading": False}, "default": {"enable_physics": True},
+         "parity": PARITY, "parity_default": {**PARITY, "enable_physics": True}}
 
 
 def _step_args(model, cfg, d):
@@ -354,8 +403,8 @@ def test_step_on_gpu_matches_cpu(dev, name):
 def test_step_makes_no_synchronising_copy(dev, name):
     """One 1080p step of each path under ``torch.cuda.set_sync_debug_mode``
     (after a first step, which fills the per-device constants): the
-    physics-off paths wait for the stream nowhere, the default path once,
-    where the solver reads its substep count."""
+    physics-off paths wait for the stream nowhere, the paths with physics
+    once, where the solver reads its substep count."""
     cfg = _path_cfg(name, width=1920, height=1080)
     model = ptesting.make_test_model(device=dev)
     step = make_step(model, cfg)
@@ -372,7 +421,7 @@ def test_step_makes_no_synchronising_copy(dev, name):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
-    assert len(syncs) == (1 if name == "default" else 0), syncs
+    assert len(syncs) == (1 if PATHS[name].get("enable_physics") else 0), syncs
     assert bool(torch.isfinite(frame).all())
 
 
@@ -525,6 +574,54 @@ def test_composite_crowd_kernel_matches_twin(dev, half):
     assert CG.composite_crowd.launches == before + 1
     assert (img - img_t).abs().max().item() <= 1e-6
     assert (seed - seed_t).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("analytic,use_mips,n", [(False, True, 4), (True, False, 1),
+                                                 (False, False, 2)])
+def test_hybrid_crowd_kernel_matches_twin(dev, analytic, use_mips, n):
+    """One launch of the hybrid kernel over three characters: bit for bit
+    the crowd twin, and each character's output that of the
+    single-character launch."""
+    ft = _crowd_frame_tables(dev)
+    tables, lights, eyes, ivps = _crowd_shade_args(dev)
+    kw = dict(hp=HP, wp=WP, n_samples=n, use_mips=use_mips, lod_bias=(1.0, 0.0),
+              analytic=analytic)
+    before = FH.render_megakernel_hybrid_crowd.launches
+    got = FH.render_megakernel_hybrid_crowd(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    want = FH.render_megakernel_hybrid_crowd_twin(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    torch.cuda.synchronize()
+    assert FH.render_megakernel_hybrid_crowd.launches == before + 1
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+    for c in range(len(CROWD_SEEDS)):
+        one = FG.FrameTables(ft.rows[c], ft.starts[c], ft.counts[c], ft.overflow[c])
+        assert torch.equal(got[c], FH.render_megakernel_hybrid(one, tables, lights, 0.45,
+                                                               eyes[c], ivps[c], **kw))
+
+
+def test_hybrid_crowd_matches_single_renders(dev):
+    """``render_crowd_mega`` with ``rasterizer="hybrid"`` on three
+    characters of the synthetic model, each with its own pose jitter and
+    camera: each frame equal to that character's ``render_frame_mega``."""
+    from reze_tpu_torch.render import pipeline_gpu
+
+    cfg = EngineConfig(width=256, height=128, enable_physics=False, rasterizer="hybrid")
+    model = ptesting.make_test_model(device=dev)
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    _, vps, eyes, lights, _, _ = _crowd_args(model, cfg, 3, dev)
+    pos0 = model.geometry.positions
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    pos = torch.stack([pos0 + 0.02 * torch.randn(pos0.shape, generator=gen).to(dev)
+                       for _ in range(3)])
+    nrm = model.geometry.normals.expand((3,) + model.geometry.normals.shape).contiguous()
+    before = FH.render_megakernel_hybrid_crowd.launches
+    frames, ovf = pipeline_gpu.render_crowd_mega(model, cfg, dims, pos, nrm, vps, eyes, lights)
+    assert FH.render_megakernel_hybrid_crowd.launches == before + 1
+    for c in range(3):
+        f1, o1 = pipeline_gpu.render_frame_mega(model, cfg, dims, pos[c], nrm[c], vps[c],
+                                                eyes[c], lights)
+        assert torch.equal(frames[c], f1), c
+        assert int(ovf[c]) == int(o1) == 0
+        assert (f1.sum(-1) > 0.01).float().mean() > 0.05
 
 
 def test_crowd_wrapper_refuses_unaligned_character(dev):

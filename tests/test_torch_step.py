@@ -208,14 +208,46 @@ def test_morph_and_tween_change_the_frame(runs):
     assert np.abs(runs[1]["pframe"] - runs[0]["pframe"]).max() > 0.1
 
 
-@pytest.mark.parametrize("change", [
-    {"albedo_bilinear": True}, {"renderer": "xla"},
-    {"use_megakernel": False, "albedo_bilinear": True},
-])
+def _still_args(model):
+    """(dt, view_proj, eye, lights, track, breath) of a still pose on the
+    CPU, the camera of ``run_frames``."""
+    from reze_tpu_torch.anim import sampler as psampler
+    from reze_tpu_torch.render import pipeline as ppipe
+
+    cam = jcam.Camera(alpha=0.0, beta=np.pi / 2, radius=3.6, target=(0.0, 1.9, 0.0),
+                      aspect=W / H)
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    breath = {"mask": torch.zeros(j, dtype=torch.bool), "ranges": torch.zeros(j),
+              "base": torch.tensor([[0.0, 0.0, 0.0, 1.0]] * j),
+              "half_cycle": torch.tensor(2.0), "start": torch.tensor(float("inf"))}
+    return (torch.tensor(1 / 60), torch.as_tensor(np.array(cam.view_proj())),
+            torch.as_tensor(np.array(cam.position())),
+            ppipe.make_lights(PT.EngineConfig(), "cpu"), psampler.empty_animation(j, nm, "cpu"),
+            breath)
+
+
+@pytest.mark.parametrize("change", [{"renderer": "xla"}])
 def test_unported_paths_refused(change):
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
     with pytest.raises(NotImplementedError):
         pmake_step(ptesting.make_test_model(device="cpu"), cfg)
+
+
+@pytest.mark.parametrize("change", [{}, {"use_megakernel": False}])
+def test_bilinear_paths_run(change):
+    """``make_step`` with bilinear albedo on the megakernel path and the
+    layered per-pass path (the quad composite; ``test_torch_parity.py``
+    holds both to the JAX package): a drawn, finite frame that the lerp
+    sets apart from the nearest frame."""
+    model = ptesting.make_test_model(device="cpu")
+    frames = []
+    for bilinear in (False, True):
+        cfg = PT.EngineConfig(width=W, height=H, enable_physics=False,
+                              albedo_bilinear=bilinear, **change)
+        frames.append(pmake_step(model, cfg)(PT.init_scene_state(model), *_still_args(model))[1])
+    assert bool(torch.isfinite(frames[1]).all())
+    assert (frames[1].sum(-1) > 0.01).float().mean() > 0.05
+    assert (frames[1] - frames[0]).abs().max() > 0.01
 
 
 def test_mat_mod_matches():
