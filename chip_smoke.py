@@ -165,6 +165,19 @@ DENSE_PAIRS_PER_TRI = 160
 # pair slots per triangle of the dense raster set (32x128 tiles: about 30
 # pairs per triangle at 1088x1920)
 DENSE_RASTER_PAIRS_PER_TRI = 40
+# the dense crowd set (phases 3e, 5b), a stand-in for a real model's crowd:
+# CROWD_C characters of seeded random triangles at CROWD_SIZE x CROWD_SIZE,
+# character c from seed DENSE_CROWD_SEED + c with DENSE_CROWD_TRIS
+# triangles a pass, so that a non-empty tile and pass averages about a
+# 128-pair chunk and many run two, as in the 1080p dense set; the rows past
+# the last pair are cut (about 350 MB of rows). Phase 3e holds the crowd
+# kernels to their twins on DENSE_CROWD_CROP characters, DENSE_CROWD_BAND
+# tile rows of each
+DENSE_CROWD_SEED = 100
+DENSE_CROWD_TRIS = 1800
+DENSE_CROWD_PAIRS_PER_TRI = 10
+DENSE_CROWD_CROP = 3
+DENSE_CROWD_BAND = 4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s, a fused multiply-add counted as two. The bound is the
@@ -420,6 +433,58 @@ def crowd_kernel_checks(dev, check, shade_tables, lights, mip_flat, mip_quad) ->
               CG.composite_crowd(o, mip_quad, **kw), CG.composite_crowd_twin(o, mip_quad, **kw))
 
 
+def random_shade_tables(dev):
+    """The seeded shade tables of the kernel checks (``testing.
+    random_shade_inputs(5)``) -> (shade tables, eye position, inverse
+    view-projection, the seeded inputs as numpy)."""
+    import torch
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.kernels import shade_gpu as SG
+
+    sh = testing.random_shade_inputs(5)
+    t = lambda k: torch.as_tensor(sh[k], device=dev)  # noqa: E731
+    return (SG.ShadeTables(push_tab=torch.zeros((1, 7), device=dev), knot_tab=t("knot_tab"),
+                           tex_tab=t("tex_tab"), edge_tab=t("edge_tab"),
+                           atlas_stride=sh["atlas_stride"]),
+            t("eye_pos"), t("inv_vp"), sh)
+
+
+def dense_crowd_tables(dev):
+    """The dense crowd set: CROWD_C characters' seeded random frame tables
+    stacked, the rows past the last pair cut (the pack's padding kept)."""
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.kernels import frame_gpu as FG
+
+    ft = testing.stack_tables([testing.random_frame_tables(
+        DENSE_CROWD_SEED + c, (DENSE_CROWD_TRIS,) * FG.N_PASSES, CROWD_SIZE, CROWD_SIZE,
+        device=dev, pairs_per_tri=DENSE_CROWD_PAIRS_PER_TRI) for c in range(CROWD_C)])
+    keep = -(-int((ft.starts + ft.counts).max()) // FG.CHUNK) * FG.CHUNK + FG.CHUNK
+    return ft._replace(rows=ft.rows[:, :keep].contiguous())
+
+
+def crowd_kernel_inputs(model, cfg, before, args, track, breath):
+    """The crowd's own inputs to its kernels: the crowd's states ``before``
+    a frame and that frame's step arguments ``args`` -> (simulate's outputs,
+    the frame dims, the shade tables, the shade arguments of the crowd
+    wrappers, the frame kernels' keywords, their tables)."""
+    from reze_tpu_torch.core import math3d as m3
+    from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.render import pipeline_gpu
+    from reze_tpu_torch.step import make_step
+
+    dt, vps, eyes, lights = args[:4]
+    sim = make_step(model, cfg).simulate(before, dt, track, breath)
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    tables = SG.pack_shade_tables(model.materials, model.atlas)
+    use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model)
+    shade = (tables, lights, cfg.rim_light_intensity, eyes, m3.mat4_inverse(vps).contiguous())
+    fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, use_mips=use_mips,
+               lod_bias=lod_bias)
+    ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, sim[7], sim[8], vps, sim[9])
+    return sim, dims, tables, shade, fkw, ft
+
+
 def crowd_inputs(model, cfg, n: int, dev, track, breath):
     """``n`` characters of ``model``, each with its own camera and clip
     start -> (states, (dt, view_projs, eyes, lights, track, breath))."""
@@ -458,7 +523,6 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
     import torch
 
     from reze_tpu_torch import distrib, testing
-    from reze_tpu_torch.core import math3d as m3
     from reze_tpu_torch.core.types import EngineConfig
     from reze_tpu_torch.kernels import composite_gpu as CG
     from reze_tpu_torch.kernels import frame_gpu as FG
@@ -549,21 +613,16 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
 
     # each batched kernel on the crowd's own inputs (the group route's state
     # before its last frame)
-    before, _, _, (dt, vps, eyes, lights, _, _) = runs["group"]
-    sim = make_step(model, cfg).simulate(before, dt, track, breath)
+    before, _, _, args = runs["group"]
+    vps, eyes, lights = args[1:4]
+    sim, dims, tables, shade, fkw, ft = crowd_kernel_inputs(model, cfg, before, args, track,
+                                                            breath)
     pos, nrm, uvs = sim[7], sim[8], sim[9]
-    dims = pipeline_gpu.make_dims_fast(cfg)
-    tables = SG.pack_shade_tables(model.materials, model.atlas)
-    use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model)
-    ivps = m3.mat4_inverse(vps).contiguous()
-    shade = (tables, lights, cfg.rim_light_intensity, eyes, ivps)
-    skw = dict(use_mips=use_mips, lod_bias=lod_bias)
-    fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, **skw)
+    skw = dict(use_mips=fkw["use_mips"], lod_bias=fkw["lod_bias"])
     mkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples)
     ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
                with_bloom=cfg.enable_bloom)
     atlas = model.atlas.mip_flat.contiguous()
-    ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, pos, nrm, vps, uvs)
     st = pipeline_gpu._build_stream_tables(model, cfg, dims, tables, pos, nrm, vps, uvs)
     o = FG.render_megakernel_crowd(ft, *shade, **fkw)
     check("frame_crowd", f"crowd_{CROWD_C}x{CROWD_SIZE}", o,
@@ -826,11 +885,8 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1], flush=True)
 
     # 3a. frame kernel against its twin on random triangles
-    sh = testing.random_shade_inputs(5)
+    rtab, _, _, sh = random_shade_tables(dev)
     t = lambda k: torch.as_tensor(sh[k], device=dev)  # noqa: E731
-    rtab = SG.ShadeTables(push_tab=torch.zeros((1, 7), device=dev), knot_tab=t("knot_tab"),
-                          tex_tab=t("tex_tab"), edge_tab=t("edge_tab"),
-                          atlas_stride=sh["atlas_stride"])
     lights = pipeline.make_lights(EngineConfig(), dev)
     # every kernel but the composite does the same float operations as its
     # twin (-fmad=false): every output value equal bit for bit
@@ -1098,6 +1154,41 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
         check_exact("hybrid", f"dense_crop_{crop_hw}_{name}",
                     FH.render_megakernel_hybrid(*dargs, **kw),
                     FH.render_megakernel_hybrid_twin(*dargs, **kw))
+    # the crowd modes on a crop of the dense crowd set: DENSE_CROWD_CROP
+    # characters, a band of DENSE_CROWD_BAND tile rows of each (a crop's
+    # tiles keep their pairs)
+    dense_crowd = dense_crowd_tables(dev)
+    live_c = dense_crowd.counts[dense_crowd.counts > 0]
+    phase("dense", crowd=f"{CROWD_C}x{CROWD_SIZE}x{CROWD_SIZE}", pairs=int(live_c.sum()),
+          rows_mb=round(nbytes(dense_crowd.rows) / 1e6, 1),
+          overflow=int(dense_crowd.overflow.sum()),
+          mean_pairs_nonempty=round(live_c.float().mean().item(), 1), max_pairs=int(live_c.max()),
+          over_a_chunk_frac=round((live_c > FG.CHUNK).float().mean().item(), 3))
+    require(int(dense_crowd.overflow.sum()) == 0, "dense crowd set overflow")
+    require(live_c.float().mean().item() >= FG.CHUNK, "dense crowd set pairs per non-empty tile")
+    cty, ctx, cc = CROWD_SIZE // FG.TILE_H, CROWD_SIZE // FG.TILE_W, DENSE_CROWD_CROP
+    cb0 = (cty - DENSE_CROWD_BAND) // 2
+
+    def band(v):
+        return v[:cc].reshape(cc, FG.N_PASSES, cty, ctx)[:, :, cb0:cb0 + DENSE_CROWD_BAND].reshape(
+            cc, FG.N_PASSES, -1).contiguous()
+
+    crop_c = dense_crowd._replace(rows=dense_crowd.rows[:cc], starts=band(dense_crowd.starts),
+                                  counts=band(dense_crowd.counts),
+                                  overflow=dense_crowd.overflow[:cc])
+    cargs = (crop_c, rtab, lights, 0.45, t("eye_pos").expand(cc, 3).contiguous(),
+             t("inv_vp").expand(cc, 4, 4).contiguous())
+    band_hw = f"{cc}x{DENSE_CROWD_BAND * FG.TILE_H}x{CROWD_SIZE}"
+    for name, analytic, mips, n in (("msaa_mips", False, True, 4),
+                                    ("analytic_nomips", True, False, 1)):
+        kw = dict(hp=DENSE_CROWD_BAND * FG.TILE_H, wp=CROWD_SIZE, n_samples=n, use_mips=mips,
+                  lod_bias=(1.0, 0.0), analytic=analytic)
+        check_crowd("frame_crowd", f"dense_crowd_crop_{band_hw}_{name}",
+                    FG.render_megakernel_crowd(*cargs, **kw),
+                    FG.render_megakernel_crowd_twin(*cargs, **kw))
+        check_crowd("hybrid_crowd", f"dense_crowd_crop_{band_hw}_{name}",
+                    FH.render_megakernel_hybrid_crowd(*cargs, **kw),
+                    FH.render_megakernel_hybrid_crowd_twin(*cargs, **kw))
     # the raster pass: the dense raster set's seven passes on a crop of
     # 32x128 tiles, moved so that the crop's origin is the frame's
     dense_rt = testing.random_raster_tables(DENSE_SEED, (DENSE_TRIS,) * FG.N_PASSES, dims.hp,
@@ -1352,6 +1443,18 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
             phase("set", kernel=kname, set=label, card=smi, pairs=int(tabs.counts.sum()),
                   ms=f"{ms:.4f}", call_ms=f"{call:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
                   share=f"{b[0] / ms:.3f}")
+    # the crowd modes on the dense crowd set, beside their bound
+    dshade = (rtab, lights, cfg.rim_light_intensity, t("eye_pos").expand(CROWD_C, 3).contiguous(),
+              t("inv_vp").expand(CROWD_C, 4, 4).contiguous())
+    dkw = dict(fkw, hp=CROWD_SIZE, wp=CROWD_SIZE)
+    for kname, fn in (("frame", FG.render_megakernel_crowd),
+                      ("hybrid", FH.render_megakernel_hybrid_crowd)):
+        ms = kernel_ms(lambda: fn(dense_crowd, *dshade, **dkw), N_TIMED, f"{kname}_kernel")
+        call = cuda_ms(lambda: fn(dense_crowd, *dshade, **dkw), N_TIMED)
+        b = frame_bound(dense_crowd, rtab, fn(dense_crowd, *dshade, **dkw), s)
+        phase("set", kernel=f"{kname}_crowd", set="dense_crowd", card=smi, chars=CROWD_C,
+              pairs=int(dense_crowd.counts.sum()), ms=f"{ms:.4f}", call_ms=f"{call:.4f}",
+              bound_ms=f"{b[0]:.4f}", bound_by=b[1], share=f"{b[0] / ms:.3f}")
     for label, rtabs_set in (("main", ptabs),
                              ("empty", [tb._replace(counts=torch.zeros_like(tb.counts))
                                         for tb in ptabs]),

@@ -20,19 +20,19 @@
 // The design is frame.cu's (frame_common.cuh's tile design): 512 threads
 // per tile, two pixels each; depths, coverage bits and stencil (coverage
 // as one float in analytic mode), the chunk's minima and the pass winner
-// as (z, global row index) in registers; each stack layer as (row * 8 +
-// pass, z, a_eff) in shared memory, its attributes and material code
-// evaluated from the row at shade time in the twin's form; 85 KB of shared
-// memory, two tiles per SM; the 128-pair chunks of all passes bulk-copied
-// into a two-stage ring while the previous chunk is walked; a tile with no
-// pair writes its fixed output and stops. The threads of a chunk's pairs
-// form each pair's normalised coefficients and its tile- and sample-folded
-// constants once into a 128 B record, with each edge's largest sample
-// constant: a pixel whose edge value a*x + b*y plus that constant is < 0
-// fails the edge at every sample (rounding is monotonic) and skips its
-// sample tests. Only the walk differs from frame.cu: one depth test per
-// chunk, not per 32-pair group, the exact-z winner and the analytic mode's
-// centre-gated depth write.
+// as (z, row index) in registers; each stack layer as (row * 8 + pass,
+// z, a_eff) in shared memory, its attributes and material code evaluated
+// from the row at shade time in the twin's form; 85 KB of shared memory,
+// two tiles per SM; a sparse tile's rows fetched in one go and kept in
+// shared memory, a fuller tile's chunks bulk-copied into a two-stage ring;
+// the shade's present pixels dealt first; a tile with no pair writes its
+// fixed output and stops. HybridWalk below is this kernel's own part: each
+// pair's normalised coefficients and its tile- and sample-folded constants
+// formed once into a 128 B record, with each edge's largest sample
+// constant (a pixel whose edge value a*x + b*y plus that constant is < 0
+// fails the edge at every sample, as rounding is monotonic, and skips its
+// sample tests); one depth test per chunk, not per 32-pair group; the
+// exact-z winner and the analytic mode's centre-gated depth write.
 //
 // A crowd launch adds the character as blockIdx.y, as frame.cu's does:
 // each character has its own pair rows (rows_stride floats apart, every
@@ -63,205 +63,189 @@ struct HybridArgs {
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.f), 1.f); }
 
-template <int NS, bool ANALYTIC, bool CROWD>
-__global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_bytes[];
-  TileSmem& sm = *reinterpret_cast<TileSmem*>(smem_bytes);
-
-  const int tid = threadIdx.x;
-  const int px = tid % TILE_W, py0 = tid / TILE_W;
-  const int bx_n = a.sp.wp / TILE_W, b = blockIdx.x;
-  if constexpr (CROWD) {  // this block's character (64-bit offsets)
-    const size_t c = blockIdx.y, n_tiles = (size_t)bx_n * (a.sp.hp / TILE_H);
-    a.rows += c * a.rows_stride;
-    a.starts += c * N_PASSES * n_tiles;
-    a.counts += c * N_PASSES * n_tiles;
-    a.out += c * (2 * O_CH) * (size_t)a.sp.hp * a.sp.wp;
-    a.sp.misc += c * 8;
-    a.sp.inv_vp += c * 16;
-  }
-  const int bi = b / bx_n, bj = b % bx_n;
-  const float x0f = (float)(bj * TILE_W), y0f = (float)(bi * TILE_H);
-  const float xs = (float)px + 0.5f;  // tile-local
-  float ys[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) ys[k] = (float)(py0 + k * ROW_STEP) + 0.5f;
-
-  const int first = begin_tile(sm, a.rows, a.starts, a.counts, a.out, a.sp, tid);
-  if (first == N_PASSES) return;  // uniform over the block
-  const ShadeParams sp = stage_shade_params(a.sp, sm.shade, tid, NTHREADS);
-
-  float zbuf[PPT][NS];
-  int bits[PPT];  // coverage of the pass per sample, the stencil
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    for (int s = 0; s < NS; ++s) zbuf[k][s] = 1.f;
-    sm.stack[0][tid + k * NTHREADS] = sm.stack[1][tid + k * NTHREADS] = Layer{-1, 0.f, 0.f};
-    bits[k] = 0;
-  }
-
-  int chunk = 0;  // position in the sequence of all passes' chunks
-  for (int p = first; p < N_PASSES; ++p) {
-    const int count = sm.count[p];
-    if (count <= 0) continue;  // uniform over the block
-    const int start = sm.start[p];
-    const bool depth_write = PASS_CFG[p][1];
+// The hybrid kernel's part of the tile design (frame_common.cuh): a pair's
+// record, the walk of a chunk's records with one depth test, the push.
+template <int NS, bool ANALYTIC>
+struct HybridWalk {
+  static constexpr int FORM = HYBRID_PLANES;
+  struct Pixels {
+    float zbuf[PPT][NS];
+    int bits[PPT];  // coverage of the pass per sample, the stencil
+  };
+  struct Pass {
     float best[PPT], won_a[PPT];  // pass winner depth; analytic coverage
     int idx[PPT];                 // pass winner row
+  };
+
+  __device__ __forceinline__ static void begin_tile(Pixels& px) {
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      best[k] = NO_HIT;
-      idx[k] = -1;
-      won_a[k] = 0.f;
-      bits[k] &= STENCIL_BIT;
+      for (int s = 0; s < NS; ++s) px.zbuf[k][s] = 1.f;
+      px.bits[k] = 0;
     }
+  }
 
-    for (int c0 = 0; c0 < count; c0 += CHUNK, ++chunk) {
-      const int n = min(count - c0, CHUNK);
-      const int stage = chunk & 1;
-      // the next chunk into the other stage (read before the last barrier)
-      if (tid == 0) stage_next(sm, a.rows, p, count, c0, stage ^ 1);
-      __syncthreads();  // the previous chunk's walk is done with prep
-      if (tid < n) {
-        // per plane a, b, c (normalised edges, the constant at the tile
-        // origin) and an edge's largest sample constant; per sample the
-        // constants c + (a*dx + b*dy)
-        mbar_wait(&sm.bar[stage], (chunk >> 1) & 1);
-        const float* r = sm.ring[stage] + tid * ROW_W;
-        float* d = sm.prep + tid * PREP_W;
-        for (int e = 0; e < 4; ++e) {
-          float ae, be, ce;
-          if (e < 3) {
-            const float ig = r[C_IGRAD + e];
-            ae = r[3 * e] * ig;
-            be = r[3 * e + 1] * ig;
-            ce = r[3 * e + 2] * ig;
+  __device__ __forceinline__ static void begin_pass(Pixels& px, Pass& w) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      w.best[k] = NO_HIT;
+      w.idx[k] = -1;
+      w.won_a[k] = 0.f;
+      px.bits[k] &= STENCIL_BIT;
+    }
+  }
+
+  // the record of the pair of row r (shared memory) in the tile at (x0f,
+  // y0f): per plane a, b, c (normalised edges, the constant at the tile
+  // origin) and an edge's largest sample constant; per sample the
+  // constants c + (a*dx + b*dy)
+  __device__ __forceinline__ static void prep(const float* r, float* d, float x0f, float y0f) {
+    for (int e = 0; e < 4; ++e) {
+      float ae, be, ce;
+      if (e < 3) {
+        const float ig = r[C_IGRAD + e];
+        ae = r[3 * e] * ig;
+        be = r[3 * e + 1] * ig;
+        ce = r[3 * e + 2] * ig;
+      } else {
+        ae = r[C_Z];
+        be = r[C_Z + 1];
+        ce = r[C_Z + 2];
+      }
+      ce = ce + (ae * x0f + be * y0f);
+      d[4 * e] = ae;
+      d[4 * e + 1] = be;
+      d[4 * e + 2] = ce;
+      float cmax = 0.f;
+      if (!ANALYTIC)
+        for (int s = 0; s < NS; ++s) {
+          const float cs = ce + (ae * SAMPLE_DX[s] + be * SAMPLE_DY[s]);
+          d[PREP_OFF + s * 4 + e] = cs;
+          cmax = s ? fmaxf(cmax, cs) : cs;
+        }
+      d[4 * e + 3] = cmax;
+    }
+  }
+
+  // the walk of a chunk of n records of pass p, tested against the depths
+  // as they stood before the chunk; a winner's row is base plus its record
+  __device__ __forceinline__ static void walk(const float* prep, int n, int base, int p,
+                                              float xs, const float* ys, Pixels& px, Pass& w) {
+    const bool depth_write = PASS_CFG[p][1];
+    float zmin[PPT][NS], covmax[PPT], bz[PPT];
+    int hit[PPT], bl[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      for (int s = 0; s < NS; ++s) zmin[k][s] = NO_HIT;
+      hit[k] = 0;
+      covmax[k] = 0.f;
+      bz[k] = NO_HIT;
+      bl[k] = -1;
+    }
+    for (int j = 0; j < n; ++j) {
+      const float4* q = reinterpret_cast<const float4*>(prep + j * PREP_W);
+      float ab0[PPT], ab1[PPT], ab2[PPT], ab3[PPT], zc[PPT];
+      bool any_pass[PPT], live[PPT], any_live = false;
+      {
+        const float4 P0 = q[0], P1 = q[1], P2 = q[2], P3 = q[3];
+        const float ax0 = P0.x * xs, ax1 = P1.x * xs, ax2 = P2.x * xs, axz = P3.x * xs;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          ab0[k] = ax0 + P0.y * ys[k];
+          ab1[k] = ax1 + P1.y * ys[k];
+          ab2[k] = ax2 + P2.y * ys[k];
+          ab3[k] = axz + P3.y * ys[k];
+          zc[k] = ab3[k] + P3.z;
+          any_pass[k] = false;
+          if (ANALYTIC) {
+            const float se0 = ab0[k] + P0.z, se1 = ab1[k] + P1.z, se2 = ab2[k] + P2.z;
+            const float cov = (clip01(se0 + 0.5f) * clip01(se1 + 0.5f)) * clip01(se2 + 0.5f);
+            const bool zok = zc[k] <= px.zbuf[k][0] && zc[k] >= 0.f && zc[k] <= 1.f;
+            any_pass[k] = cov > 0.f && zok;
+            if (se0 >= 0.f && se1 >= 0.f && se2 >= 0.f && zok)
+              zmin[k][0] = fminf(zmin[k][0], zc[k]);
+            if (any_pass[k]) covmax[k] = fmaxf(covmax[k], cov);
           } else {
-            ae = r[C_Z];
-            be = r[C_Z + 1];
-            ce = r[C_Z + 2];
+            // outside an edge at every sample: a*x + b*y + c_s <= a*x +
+            // b*y + max_s c_s < 0 for each sample, as rounding is
+            // monotonic
+            live[k] = !(ab0[k] + P0.w < 0.f || ab1[k] + P1.w < 0.f || ab2[k] + P2.w < 0.f);
+            any_live = any_live || live[k];
           }
-          ce = ce + (ae * x0f + be * y0f);
-          d[4 * e] = ae;
-          d[4 * e + 1] = be;
-          d[4 * e + 2] = ce;
-          float cmax = 0.f;
-          if (!ANALYTIC)
-            for (int s = 0; s < NS; ++s) {
-              const float cs = ce + (ae * SAMPLE_DX[s] + be * SAMPLE_DY[s]);
-              d[PREP_OFF + s * 4 + e] = cs;
-              cmax = s ? fmaxf(cmax, cs) : cs;
-            }
-          d[4 * e + 3] = cmax;
         }
       }
-      __syncthreads();
-
-      float zmin[PPT][NS], covmax[PPT], bz[PPT];
-      int hit[PPT], bl[PPT];
+      if (!ANALYTIC && any_live) {
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        for (int s = 0; s < NS; ++s) zmin[k][s] = NO_HIT;
-        hit[k] = 0;
-        covmax[k] = 0.f;
-        bz[k] = NO_HIT;
-        bl[k] = -1;
-      }
-      for (int j = 0; j < n; ++j) {
-        const float4* q = reinterpret_cast<const float4*>(sm.prep + j * PREP_W);
-        float ab0[PPT], ab1[PPT], ab2[PPT], ab3[PPT], zc[PPT];
-        bool any_pass[PPT], live[PPT], any_live = false;
-        {
-          const float4 P0 = q[0], P1 = q[1], P2 = q[2], P3 = q[3];
-          const float ax0 = P0.x * xs, ax1 = P1.x * xs, ax2 = P2.x * xs, axz = P3.x * xs;
+        for (int s = 0; s < NS; ++s) {
+          const float4 cs = q[PREP_OFF / 4 + s];
 #pragma unroll
           for (int k = 0; k < PPT; ++k) {
-            ab0[k] = ax0 + P0.y * ys[k];
-            ab1[k] = ax1 + P1.y * ys[k];
-            ab2[k] = ax2 + P2.y * ys[k];
-            ab3[k] = axz + P3.y * ys[k];
-            zc[k] = ab3[k] + P3.z;
-            any_pass[k] = false;
-            if (ANALYTIC) {
-              const float se0 = ab0[k] + P0.z, se1 = ab1[k] + P1.z, se2 = ab2[k] + P2.z;
-              const float cov = (clip01(se0 + 0.5f) * clip01(se1 + 0.5f)) * clip01(se2 + 0.5f);
-              const bool zok = zc[k] <= zbuf[k][0] && zc[k] >= 0.f && zc[k] <= 1.f;
-              any_pass[k] = cov > 0.f && zok;
-              if (se0 >= 0.f && se1 >= 0.f && se2 >= 0.f && zok)
-                zmin[k][0] = fminf(zmin[k][0], zc[k]);
-              if (any_pass[k]) covmax[k] = fmaxf(covmax[k], cov);
-            } else {
-              // outside an edge at every sample: a*x + b*y + c_s <= a*x +
-              // b*y + max_s c_s < 0 for each sample, as rounding is
-              // monotonic
-              live[k] = !(ab0[k] + P0.w < 0.f || ab1[k] + P1.w < 0.f || ab2[k] + P2.w < 0.f);
-              any_live = any_live || live[k];
+            const float zs = ab3[k] + cs.w;
+            if (live[k] && ab0[k] + cs.x >= 0.f && ab1[k] + cs.y >= 0.f
+                && ab2[k] + cs.z >= 0.f && zs <= px.zbuf[k][s] && zs >= 0.f && zs <= 1.f) {
+              zmin[k][s] = fminf(zmin[k][s], zs);
+              hit[k] |= 1 << s;
+              any_pass[k] = true;
             }
           }
         }
-        if (!ANALYTIC && any_live) {
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const float4 cs = q[PREP_OFF / 4 + s];
-#pragma unroll
-            for (int k = 0; k < PPT; ++k) {
-              const float zs = ab3[k] + cs.w;
-              if (live[k] && ab0[k] + cs.x >= 0.f && ab1[k] + cs.y >= 0.f
-                  && ab2[k] + cs.z >= 0.f && zs <= zbuf[k][s] && zs >= 0.f && zs <= 1.f) {
-                zmin[k][s] = fminf(zmin[k][s], zs);
-                hit[k] |= 1 << s;
-                any_pass[k] = true;
-              }
-            }
-          }
-        }
-        // winner: minimum centre z, the highest lane on a tie
-#pragma unroll
-        for (int k = 0; k < PPT; ++k)
-          if (any_pass[k] && zc[k] <= bz[k]) {
-            bz[k] = zc[k];
-            bl[k] = j;
-          }
       }
+      // winner: minimum centre z, the highest lane on a tie
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (depth_write)
-          for (int s = 0; s < NS; ++s) zbuf[k][s] = fminf(zbuf[k][s], zmin[k][s]);
-        if (ANALYTIC) won_a[k] = fmaxf(won_a[k], covmax[k]);
-        else bits[k] |= hit[k];
-        if (bz[k] < NO_HIT && bz[k] <= best[k]) {  // a later chunk takes a tie
-          best[k] = bz[k];
-          idx[k] = start + c0 + bl[k];
+      for (int k = 0; k < PPT; ++k)
+        if (any_pass[k] && zc[k] <= bz[k]) {
+          bz[k] = zc[k];
+          bl[k] = j;
         }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (depth_write)
+        for (int s = 0; s < NS; ++s) px.zbuf[k][s] = fminf(px.zbuf[k][s], zmin[k][s]);
+      if (ANALYTIC) w.won_a[k] = fmaxf(w.won_a[k], covmax[k]);
+      else px.bits[k] |= hit[k];
+      if (bz[k] < NO_HIT && bz[k] <= w.best[k]) {  // a later chunk takes a tie
+        w.best[k] = bz[k];
+        w.idx[k] = base + bl[k];
       }
     }
+  }
 
-    // the winner's depth at the pixel centre, then the push
+  // the winner's depth at the pixel centre, then the push; the winners'
+  // rows in `rows` (LDG: device memory)
+  template <bool LDG>
+  __device__ __forceinline__ static void push(Layer (*stack)[NPIX], int tid, const float* rows,
+                                              int p, float xs, const float* ys, float x0f,
+                                              float y0f, Pixels& px, Pass& w) {
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       float cover;
       if (ANALYTIC) {
-        cover = won_a[k];
+        cover = w.won_a[k];
       } else {
-        cover = (float)(bits[k] & 1);
-        for (int s = 1; s < NS; ++s) cover = cover + (float)((bits[k] >> s) & 1);
+        cover = (float)(px.bits[k] & 1);
+        for (int s = 1; s < NS; ++s) cover = cover + (float)((px.bits[k] >> s) & 1);
         cover = cover * (float)(1.0 / NS);
       }
-      const bool hit = best[k] < NO_HIT;
+      const bool hit = w.best[k] < NO_HIT;
       float z = 0.f, code = 0.f;
       if (hit) {
-        const float* r = a.rows + (size_t)idx[k] * ROW_W;
-        const float za = __ldg(r + C_Z), zb = __ldg(r + C_Z + 1);
-        z = (za * xs + zb * ys[k]) + ((__ldg(r + C_Z + 2) + za * x0f) + zb * y0f);
-        code = __ldg(r + C_ALPHA);
+        const float* r = rows + (size_t)w.idx[k] * ROW_W;
+        const float za = row_at<LDG>(r, C_Z), zb = row_at<LDG>(r, C_Z + 1);
+        z = (za * xs + zb * ys[k]) + ((row_at<LDG>(r, C_Z + 2) + za * x0f) + zb * y0f);
+        code = row_at<LDG>(r, C_ALPHA);
       }
-      push_ref(sm.stack[0][tid + k * NTHREADS], sm.stack[1][tid + k * NTHREADS], bits[k], hit,
-               cover, code, idx[k] * 8 + p, z, p);
+      push_ref(stack[0][tid + k * NTHREADS], stack[1][tid + k * NTHREADS], px.bits[k], hit,
+               cover, code, w.idx[k] * 8 + p, z, p);
     }
   }
+};
 
-  shade_layers<HYBRID_PLANES>(sm, a.rows, a.sp, sp, a.out, tid, bi, bj, px, py0, xs, ys, x0f,
-                             y0f);
+template <int NS, bool ANALYTIC, bool CROWD>
+__global__ void __launch_bounds__(NTHREADS, 2) hybrid_kernel(HybridArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  run_tile<HybridWalk<NS, ANALYTIC>, CROWD>(*reinterpret_cast<TileSmem*>(smem_bytes), a.rows,
+                                           a.rows_stride, a.starts, a.counts, a.out, a.sp);
 }
 
 template <int NS, bool ANALYTIC, bool CROWD>

@@ -80,27 +80,16 @@ __device__ __forceinline__ float tile_fd(float a, float fwd, float bwd) {
   return fabsf(f) < fabsf(b) ? f : b;
 }
 
-// stk: the pixel's L_CH stack values; u, v: its texture coordinates (the
-// caller computed them and the in-tile differences du_x.. from neighbours);
-// xs, ys: pixel centre in frame coordinates. Writes O_LR..O_FY to res.
-__device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, float inv_iw,
-                                            float du_x, float du_y, float dv_x, float dv_y,
-                                            float xs, float ys, int layer,
-                                            const ShadeParams& sp, float* res) {
-  const bool mat_present = stk[L_AEFF] > 0.f;
-  float nx = stk[L_NXIW] * inv_iw;
-  float ny = stk[L_NYIW] * inv_iw;
-  float nz = stk[L_NZIW] * inv_iw;
-  const float inv_len = 1.f / sqrtf(fmaxf((nx * nx + ny * ny) + nz * nz, (float)1e-16));
-  nx = nx * inv_len;
-  ny = ny * inv_len;
-  nz = nz * inv_len;
-
-  // texel index + bilinear footprint
-  const float tex_gid = stk[L_TEX];
+// The texel index and bilinear footprint of texture group tex_gid at u, v
+// (in-tile differences du_x.. for the mip level): res[O_DXDY], O_FX, O_FY;
+// -> the texel index and whether the group is textured.
+__device__ __forceinline__ float tex_footprint(float tex_gid, float u, float v, float du_x,
+                                               float du_y, float dv_x, float dv_y, int layer,
+                                               const ShadeParams& sp, float* res,
+                                               float& tex_ok) {
   const float tex_h = group_sel(tex_gid, sp.tex, sp.kt, sp.tex_cols, 0, 1.f);
   const float tex_w = group_sel(tex_gid, sp.tex, sp.kt, sp.tex_cols, 1, 1.f);
-  const float tex_ok = group_sel(tex_gid, sp.tex, sp.kt, sp.tex_cols, 3, 0.f);
+  tex_ok = group_sel(tex_gid, sp.tex, sp.kt, sp.tex_cols, 3, 0.f);
   float wl, hl, base_l, stride;
   if (sp.n_levels > 0) {
     const float rho = fmaxf(fmaxf(fabsf(du_x), fabsf(du_y)) * tex_w,
@@ -126,18 +115,24 @@ __device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, 
   const float fy = fminf(fmaxf(tv - y0, 0.f), 1.f);
   const float dx = (x0 + 1.f <= wl - 1.f) ? 1.f : 0.f;
   const float dy = (y0 + 1.f <= hl - 1.f) ? stride : 0.f;
-  const float texidx = (base_l + y0 * stride) + x0;
+  res[O_DXDY] = dx + 2.f * dy;
+  res[O_FX] = fx;
+  res[O_FY] = fy;
+  return (base_l + y0 * stride) + x0;
+}
 
+// The toon ramp at unit normal (nx, ny, nz) of ramp group ramp_gid -> acc.
+__device__ __forceinline__ void toon_ramp(float nx, float ny, float nz, float ramp_gid,
+                                          const ShadeParams& sp, float* acc) {
   // toon ramp: 9-knot hat basis over four lights plus ambient. The twin
   // sums all nine knots in order from t = +0; a knot whose hat weight is 0
   // adds a signed zero, which leaves t's bits as they are (t is never -0),
   // so for finite knots the sum of the knots at floor(f) and floor(f) + 1
   // in that order has the same bits. An unknown group's knots are 0.
-  const float ramp_gid = stk[L_RAMP];
   const bool ramp_ok = ramp_gid >= 0.f && ramp_gid < (float)sp.kr;
   const float* knots = sp.knot + (ramp_ok ? (int)ramp_gid : 0) * (N_KNOTS * 3);
   const float ambient = sp.misc[0];
-  float acc[3] = {ambient, ambient, ambient};
+  acc[0] = acc[1] = acc[2] = ambient;
   for (int li = 0; li < 4; ++li) {
     const float* ld = sp.ldir + li * 3;
     const float ndotl = fmaxf(-((nx * ld[0] + ny * ld[1]) + nz * ld[2]), 0.f);
@@ -152,6 +147,29 @@ __device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, 
     }
     for (int c = 0; c < 3; ++c) acc[c] = acc[c] + t[c] * (sp.lcol[li * 3 + c] * ndotl);
   }
+}
+
+// stk: the pixel's L_CH stack values; u, v: its texture coordinates (the
+// caller computed them and the in-tile differences du_x.. from neighbours);
+// xs, ys: pixel centre in frame coordinates. Writes O_LR..O_FY to res.
+__device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, float inv_iw,
+                                            float du_x, float du_y, float dv_x, float dv_y,
+                                            float xs, float ys, int layer,
+                                            const ShadeParams& sp, float* res) {
+  const bool mat_present = stk[L_AEFF] > 0.f;
+  float nx = stk[L_NXIW] * inv_iw;
+  float ny = stk[L_NYIW] * inv_iw;
+  float nz = stk[L_NZIW] * inv_iw;
+  const float inv_len = 1.f / sqrtf(fmaxf((nx * nx + ny * ny) + nz * nz, (float)1e-16));
+  nx = nx * inv_len;
+  ny = ny * inv_len;
+  nz = nz * inv_len;
+
+  float tex_ok;
+  const float texidx = tex_footprint(stk[L_TEX], u, v, du_x, du_y, dv_x, dv_y, layer, sp, res,
+                                     tex_ok);
+  float acc[3];
+  toon_ramp(nx, ny, nz, stk[L_RAMP], sp, acc);
 
   // world position from depth, then rim = (1 - n.v)^2
   const float ndc_x = xs * (float)(2.0 / sp.wp) - 1.f;
@@ -179,9 +197,27 @@ __device__ __forceinline__ void shade_pixel(const float* stk, float u, float v, 
   const bool no_tex = outline || !mat_present || tex_ok <= 0.5f;
   res[O_RIM] = rim;
   res[O_TEX] = no_tex ? -1.f : texidx;
-  res[O_DXDY] = dx + 2.f * dy;
-  res[O_FX] = fx;
-  res[O_FY] = fy;
+}
+
+// What shade_pixel gives a pixel with no fragment (every stack value +0,
+// so u = v = +0 and the unit normal +0): its colour is the toon ramp of
+// that normal in ramp group 0 and its rim (1 - n.v)^2 * rim with n.v = 0
+// (a product with the +0 normal, or NaN, which fmaxf drops), the same for
+// every such pixel of a character: the caller computes them once with
+// absent_colour. Only the footprint varies, through the mip level.
+__device__ __forceinline__ void absent_colour(const ShadeParams& sp, float* acc) {
+  toon_ramp(0.f, 0.f, 0.f, 0.f, sp, acc);
+  const float rim_f = 1.f - 0.f;
+  acc[3] = (rim_f * rim_f) * sp.misc[1];
+}
+
+__device__ __forceinline__ void shade_absent(const float* colour, float du_x, float du_y,
+                                             float dv_x, float dv_y, int layer,
+                                             const ShadeParams& sp, float* res) {
+  float tex_ok;
+  tex_footprint(0.f, 0.f, 0.f, du_x, du_y, dv_x, dv_y, layer, sp, res, tex_ok);
+  for (int c = 0; c < 4; ++c) res[O_LR + c] = colour[c];
+  res[O_TEX] = -1.f;
 }
 
 }  // namespace reze

@@ -71,7 +71,7 @@ from reze_tpu_torch.render import pipeline as ppipe
 from reze_tpu_torch.render import pipeline_gpu
 from reze_tpu_torch.step import make_step as pmake_step
 from test_physics import init_state
-from test_torch_frame import _jax_tables, _port_shade
+from test_torch_frame import _jax_tables, _one_thread, _port_shade  # noqa: F401
 from test_torch_physics import SCENES
 from test_torch_step import TEX_HW, bind_pose
 from test_torch_stream import jax_stream_tables, planar
@@ -85,17 +85,6 @@ ROT_TOL = 1e-4
 VERT_TOL = 1e-3
 POS_TOL = 1e-4
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs it beside
-    single-threaded JAX tests on the other workers, and torch's default of
-    one thread per core would take every core from them in bursts."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _jlights():
     return jpipe.make_lights(JT.EngineConfig())

@@ -20,19 +20,8 @@ from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.kernels import frame_gpu as FG
 from reze_tpu_torch.kernels import shade_gpu as SG
 from test_torch_crowd import C, RIM, SEEDS, _eyes_inv_vps, _jlights, _jstack, _plights
-from test_torch_frame import _jax_tables, _port_shade
+from test_torch_frame import _jax_tables, _one_thread, _port_shade  # noqa: F401
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs it beside
-    single-threaded JAX tests on the other workers, and torch's default of
-    one thread per core would take every core from them in bursts."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def frame_case():

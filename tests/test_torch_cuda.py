@@ -6,11 +6,14 @@ paths, the default configuration with physics and the parity config
 (bilinear albedo through the quad composite, with and without physics);
 each path's step free of synchronising copies; the rigid-body solver on
 the card against its CPU run; the crowd's batched kernels (the hybrid's
-too) against their twins at C = 3, the hybrid crowd render against each
-character's single render, and the crowd step on the card against the
-crowd step on the CPU, against the single step of each character, and
-free of synchronising copies. Marked ``cuda``: every test skips without a CUDA
-device. Run on a GPU machine with
+too) against their twins at C = 3, and the frame and hybrid crowd kernels
+on a character with no pair, on tiles fetched in one go beside tiles that
+overflow into the two-stage ring, at C = 2 and at an odd C past the
+card's resident blocks, and right after a 1080p launch; the hybrid crowd
+render against each character's single render, and the crowd step on the
+card against the crowd step on the CPU, against the single step of each
+character, and free of synchronising copies. Marked ``cuda``: every test
+skips without a CUDA device. Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
 
@@ -596,6 +599,105 @@ def test_hybrid_crowd_kernel_matches_twin(dev, analytic, use_mips, n):
         one = FG.FrameTables(ft.rows[c], ft.starts[c], ft.counts[c], ft.overflow[c])
         assert torch.equal(got[c], FH.render_megakernel_hybrid(one, tables, lights, 0.45,
                                                                eyes[c], ivps[c], **kw))
+
+
+# the crowd launches of the frame and hybrid kernels on what the tile
+# design (csrc/frame_common.cuh run_tile) tells apart: tiles fetched in one
+# go or through the ring, empty tiles and characters, many characters;
+# each case in every sample count and in analytic mode, both kernels
+CROWD_MODES = [(1, False), (2, False), (3, False), (4, False), (1, True)]
+CROWD_KERNELS = {"frame": (FG.render_megakernel_crowd, FG.render_megakernel_crowd_twin),
+                 "hybrid": (FH.render_megakernel_hybrid_crowd,
+                            FH.render_megakernel_hybrid_crowd_twin)}
+SPARSE_TRIS, FULL_TRIS = (40,) * 7, (400,) * 7
+
+
+def _padded_crowd(tabs):
+    """Per-character tables of any row count -> the crowd's, each
+    character's rows padded with zero rows to the longest (rows past a
+    character's segments are never read)."""
+    n = max(t.rows.shape[0] for t in tabs)
+    return ptesting.stack_tables([t._replace(rows=torch.cat(
+        [t.rows, t.rows.new_zeros((n - t.rows.shape[0], FG.ROW_W))])) for t in tabs])
+
+
+def _check_crowd_kernel(dev, kernel, ft, n, analytic, hp=HP, wp=WP):
+    """One crowd launch of ``kernel`` on ``ft``, each character with its
+    own eye position and inverse view-projection: bit for bit its twin."""
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    c = ft.rows.shape[0]
+    eyes = eye + 0.05 * torch.arange(c, device=dev, dtype=torch.float32)[:, None]
+    ivps = inv_vp * (1.0 + 0.01 * torch.arange(c, device=dev, dtype=torch.float32))[:, None, None]
+    kw = dict(hp=hp, wp=wp, n_samples=n, use_mips=not analytic, lod_bias=(1.0, 0.0),
+              analytic=analytic)
+    fn, twin = CROWD_KERNELS[kernel]
+    before = fn.launches
+    got = fn(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    want = twin(ft, tables, lights, 0.45, eyes, ivps, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (c, 2 * SG.O_CH, hp, wp)
+    assert ptesting.bit_diff(got, want) == (1.0, 0.0)
+
+
+@pytest.mark.parametrize("n,analytic", CROWD_MODES)
+@pytest.mark.parametrize("kernel", sorted(CROWD_KERNELS))
+def test_crowd_kernel_with_an_empty_character(dev, kernel, n, analytic):
+    """A crowd in which the middle character has no pair in any tile: its
+    tiles write the fixed empty output between the others' tiles."""
+    ft = ptesting.stack_tables([ptesting.random_frame_tables(s, SPARSE_TRIS, HP, WP, device=dev)
+                                for s in CROWD_SEEDS])
+    ft = ft._replace(counts=ft.counts.clone())
+    ft.counts[1] = 0
+    _check_crowd_kernel(dev, kernel, ft, n, analytic)
+
+
+@pytest.mark.parametrize("n,analytic", CROWD_MODES)
+@pytest.mark.parametrize("kernel", sorted(CROWD_KERNELS))
+def test_crowd_kernel_fetch_overflow(dev, kernel, n, analytic):
+    """Characters whose tiles fit one ring stage (fetched in one go) beside
+    ones whose pairs overflow it into the two-stage ring, some passes
+    longer than a chunk: a block alternates between both walks."""
+    ft = _padded_crowd([ptesting.random_frame_tables(s, tris, HP, WP, device=dev)
+                        for s, tris in zip(CROWD_SEEDS, (SPARSE_TRIS, FULL_TRIS, SPARSE_TRIS))])
+    totals = ft.counts.sum(1)
+    assert (totals <= FG.CHUNK).any() and (totals > FG.CHUNK).any()
+    assert ft.counts.max() > FG.CHUNK
+    _check_crowd_kernel(dev, kernel, ft, n, analytic)
+
+
+@pytest.mark.parametrize("n,analytic", CROWD_MODES)
+@pytest.mark.parametrize("kernel", sorted(CROWD_KERNELS))
+@pytest.mark.parametrize("chars", ["two", "past_the_grid"])
+def test_crowd_kernel_character_counts(dev, kernel, n, analytic, chars):
+    """C = 2, and an odd C whose C x tiles exceed the blocks the card holds
+    at once (two per SM), so that the blocks of many characters run in
+    turns."""
+    tiles = (HP // FG.TILE_H) * (WP // FG.TILE_W)
+    if chars == "two":
+        c = 2
+    else:
+        c = 2 * torch.cuda.get_device_properties(dev).multi_processor_count // tiles + 1
+        c += 1 - c % 2
+        assert c * tiles > 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    ft = _padded_crowd([ptesting.random_frame_tables(100 + i, SPARSE_TRIS if i % 3 else FULL_TRIS,
+                                                     HP, WP, device=dev) for i in range(c)])
+    _check_crowd_kernel(dev, kernel, ft, n, analytic)
+
+
+@pytest.mark.parametrize("n,analytic", CROWD_MODES)
+@pytest.mark.parametrize("kernel", sorted(CROWD_KERNELS))
+def test_crowd_kernel_after_a_single_launch(dev, kernel, n, analytic):
+    """A crowd launched right after a 1088x1920 single-character launch of
+    the same kernel: nothing of that launch reaches the crowd's output."""
+    tables, lights, eye, inv_vp = _shade_args(dev)
+    big = ptesting.random_frame_tables(7, N_TRIS, 1088, 1920, device=dev)
+    single = {"frame": FG.render_megakernel, "hybrid": FH.render_megakernel_hybrid}[kernel]
+    single(big, tables, lights, 0.45, eye, inv_vp, hp=1088, wp=1920, n_samples=n,
+           use_mips=not analytic, analytic=analytic)
+    ft = _padded_crowd([ptesting.random_frame_tables(s, tris, HP, WP, device=dev)
+                        for s, tris in zip(CROWD_SEEDS, (FULL_TRIS, SPARSE_TRIS, SPARSE_TRIS))])
+    _check_crowd_kernel(dev, kernel, ft, n, analytic)
 
 
 def test_hybrid_crowd_matches_single_renders(dev):

@@ -31,6 +31,7 @@ from reze_tpu_torch import bridge
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.render import post as ppost
 from reze_tpu_torch.render import shading_fast as PSF
+from test_torch_frame import _one_thread  # noqa: F401
 from test_torch_step import N_FRAMES, H, W, run_frames
 
 BRANCHES = {"layered": {"use_megakernel": False}, "per_pass": {"layered_shading": False}}

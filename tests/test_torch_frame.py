@@ -38,6 +38,18 @@ N_TRIS = (400,) * 7
 RIM = 0.45
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for a module that uses this (the port's CPU-heavy
+    test modules import it): the suite runs them beside single-threaded JAX
+    tests on the other workers, and torch's default of one thread per core
+    would take every core from them in bursts."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tables(ft, sh):
     rows = np.zeros((ft.rows.shape[0], FT.ROW_W), np.float32)
     rows[:, :FG.ROW_W] = ft.rows.numpy()

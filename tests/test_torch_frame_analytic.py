@@ -16,7 +16,7 @@ from reze_tpu.kernels import shade_tpu as ST
 from reze_tpu.render import pipeline_tpu
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.kernels import composite_gpu as CG
-from test_torch_frame import HP, WP, check_frame, frame_outputs
+from test_torch_frame import HP, WP, _one_thread, check_frame, frame_outputs  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,7 +31,8 @@ from reze_tpu_torch.kernels import frame_gpu as FG
 from reze_tpu_torch.kernels import frame_hybrid as FH
 from reze_tpu_torch.kernels import shade_gpu as SG
 from test_torch_step import check_mega_frames, mega_frames
-from test_torch_frame import HP, N_TRIS, RIM, WP, _jax_tables, _port_shade
+from test_torch_frame import (HP, N_TRIS, RIM, WP, _jax_tables, _one_thread,  # noqa: F401
+                              _port_shade)
 
 
 def hybrid_rows(rows: np.ndarray) -> np.ndarray:

@@ -31,7 +31,7 @@ from reze_tpu_torch.kernels import frame_gpu as FG
 from reze_tpu_torch.kernels import frame_mxu as FM
 from reze_tpu_torch.kernels import shade_gpu as SG
 from test_torch_step import check_mega_frames, mega_frames
-from test_torch_frame import HP, N_TRIS, WP
+from test_torch_frame import HP, N_TRIS, WP, _one_thread  # noqa: F401
 
 EXACT = (SG.L_AEFF, SG.L_OUT, SG.L_RAMP, SG.L_TEX, SG.L_EDGE)
 

@@ -51,9 +51,11 @@ import torch
 
 from reze_tpu import camera as jcam
 from reze_tpu import testing as jtesting
+from reze_tpu.core import math3d as jm3
 from reze_tpu.core import types as JT
 from reze_tpu.kernels import composite_tpu as CT
 from reze_tpu.kernels import frame_hybrid as JFH
+from reze_tpu.kernels import frame_tpu as JFT
 from reze_tpu.kernels import shade_tpu as ST
 from reze_tpu.render import pipeline as jpipe
 from reze_tpu.render import pipeline_tpu
@@ -66,7 +68,7 @@ from reze_tpu_torch.kernels import frame_hybrid as FH
 from reze_tpu_torch.kernels import shade_gpu as SG
 from reze_tpu_torch.render import pipeline_gpu
 from test_torch_crowd import C, RIM, SEEDS, _crowd_inputs, _eyes_inv_vps, _jlights, _jstack
-from test_torch_frame import _jax_tables, _port_shade
+from test_torch_frame import _jax_tables, _one_thread, _port_shade  # noqa: F401
 from test_torch_hybrid import hybrid_rows
 from test_torch_step import TEX_HW, bind_pose
 
@@ -79,17 +81,6 @@ HALF = [(False, False), (True, True), (False, True)]
 FRAMES = {"parity_mega": (PARITY, False), "parity_layered": (PARITY, True),
           "nomips_mega": (dict(albedo_mips=False), False),
           "fullres_mega": (dict(albedo_half_visible=False, albedo_half_occluded=False), False)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs it beside
-    single-threaded JAX tests on the other workers, and torch's default of
-    one thread per core would take every core from them in bursts."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(quad=True):
@@ -213,6 +204,39 @@ def test_quad_route_matches_4tap_route(mips):
 # --- whole frames against the JAX package ------------------------------------
 
 
+# the JAX frame kernel's output and pair overflow per (use_mips, lod_bias):
+# the megakernel frames of FRAMES differ in their finish only, so frames
+# whose kernel takes the same arguments share one interpret-mode run
+_JAX_SHADED = {}
+
+
+def _jax_mega_frame(jmodel, jcfg, packed, pos, nrm, vp, eye, jlights):
+    """pipeline_tpu.render_frame_mega ("group", no uvs or material morphs)
+    in two steps, the frame kernel's output taken from ``_JAX_SHADED``
+    where a frame of this module computed it: the pair tables and the frame
+    kernel, then the finish."""
+    dims = pipeline_tpu.make_dims_fast(jcfg)
+    use_mips, lod_bias = pipeline_tpu._mip_args(jcfg, jmodel)
+    key = (use_mips, lod_bias)
+    if key not in _JAX_SHADED:
+        @jax.jit
+        def shaded(pos, nrm, vp, eye, lights):
+            tables = ST.pack_shade_tables(jmodel.materials, jmodel.atlas)
+            ft = pipeline_tpu._build_group_tables(jmodel, jcfg, dims, tables, pos, nrm, vp, None)
+            o = JFT.render_megakernel(ft, tables, lights, jcfg.rim_light_intensity, eye,
+                                      jm3.mat4_inverse(vp), hp=dims.hp, wp=dims.wp,
+                                      n_samples=jcfg.msaa_samples, interpret=True,
+                                      use_mips=use_mips, lod_bias=lod_bias, analytic=False)
+            return o.reshape(2 * ST.O_CH, dims.p), ft.overflow
+
+        _JAX_SHADED[key] = shaded(pos, nrm, vp, eye, jlights)
+    o, ovf = _JAX_SHADED[key]
+    flat = jmodel.atlas.mip_flat if use_mips else packed.atlas_flat
+    quad = jmodel.atlas.mip_quad if use_mips else jmodel.atlas.flat_quad
+    finish = jax.jit(lambda o: pipeline_tpu._finish_frame(o, flat, dims, jcfg, True, quad=quad))
+    return finish(o), ovf
+
+
 @pytest.fixture(scope="module", params=sorted(FRAMES))
 def frame_pair(request):
     """One frame of both packages in the bind pose: render_frame_mega
@@ -225,14 +249,12 @@ def frame_pair(request):
     jcfg, pcfg = JT.EngineConfig(renderer="tpu", **kw), PT.EngineConfig(**kw)
     jlights = jpipe.make_lights(jcfg)
     packed = JSF.pack_materials(jmodel.materials, jmodel.atlas)
-    render = pipeline_tpu.render_frame_fast if fast else pipeline_tpu.render_frame_mega
-
-    @jax.jit
-    def ref(pos, nrm, vp, eye, lights):
-        return render(jmodel, jcfg, pipeline_tpu.make_dims_fast(jcfg), packed, pos, nrm, vp,
-                      eye, lights, interpret=True, with_diag=True)
-
-    jframe, jovf = ref(pos, nrm, vp, eye, jlights)
+    if fast:
+        jframe, jovf = jax.jit(lambda pos, nrm, vp, eye, lights: pipeline_tpu.render_frame_fast(
+            jmodel, jcfg, pipeline_tpu.make_dims_fast(jcfg), packed, pos, nrm, vp, eye, lights,
+            interpret=True, with_diag=True))(pos, nrm, vp, eye, jlights)
+    else:
+        jframe, jovf = _jax_mega_frame(jmodel, jcfg, packed, pos, nrm, vp, eye, jlights)
     t = torch.as_tensor
     args = (_model(), pcfg, pipeline_gpu.make_dims_fast(pcfg))
     pargs = (t(pos), t(nrm), t(vp), t(eye), bridge.from_jax_arrays(jax.device_get(jlights),

@@ -50,6 +50,7 @@ from reze_tpu_torch.core import types as PT
 from reze_tpu_torch.physics import solver as psolver
 from test_physics import _ground_slider_pm, init_state, make_pm
 from test_physics_oracle import make_chain, make_drape_scene
+from test_torch_frame import _one_thread  # noqa: F401
 
 POS_TOL = 1e-4
 VEL_TOL = 2e-3

@@ -46,6 +46,7 @@ from reze_tpu_torch.anim import tween as ptween
 from reze_tpu_torch.core import types as PT
 from reze_tpu_torch.render import pipeline_gpu
 from reze_tpu_torch.step import make_step as pmake_step
+from test_torch_frame import _one_thread  # noqa: F401
 
 W, H = 128, 64
 TEX_HW = (16, 2)

@@ -44,7 +44,7 @@ from reze_tpu_torch.kernels import frame_gpu as FG
 from reze_tpu_torch.kernels import frame_stream as FS
 from reze_tpu_torch.kernels import shade_gpu as SG
 from reze_tpu_torch.render import pipeline_gpu
-from test_torch_frame import HP, N_TRIS, WP
+from test_torch_frame import HP, N_TRIS, WP, _one_thread  # noqa: F401
 from test_torch_step import TEX_HW, bind_pose, check_mega_frames, mega_frames
 
 N_SAMPLES = 4
