@@ -63,6 +63,27 @@ Phases, each printed on its own line:
    chunked frames equal to unchunked ones; then ``render_crowd_mega`` with
    ``rasterizer="hybrid"`` on the crowd's inputs (one hybrid crowd launch),
    each character within CROWD_TOL of its single ``render_frame_mega``;
+   (4d) the Engine: a flagship-width model (``testing.make_pmx_spec(0,
+   "flagship")``: 28,842 vertices, 19 materials, 349 bones, 72 morphs,
+   257 bodies) with its PNG and BMP textures and a 2 s clip written to
+   files under ``build/``, loaded through ``Engine(EngineConfig(W x H),
+   device="cuda")`` (seconds to build the native parser, parse, build and
+   move to the card), each pass's triangle count, the clip played with
+   breathing for ENGINE_FRAMES frames at 1/60 s: uint8 frames, not black,
+   the covered fraction, no pair or contact overflow, exactly one frame-
+   and one composite-kernel launch a frame (counts set to 0 just before
+   and read just after), and the last frame equal to ``make_step``'s from
+   the same state with the clip's camera (within 1/255 on 99 % of
+   pixels) and unlike the orbit camera's; the frame and composite kernels
+   against their twins on the model's own 1080p tables; then the same
+   model at ENGINE_SMALL through the Engine on the card and on the CPU,
+   each frame's share of pixels past 1/255 within RIG_SPREAD of the CPU's
+   own one-ulp witnesses' or within 1 % (``engine_small_check``), a crowd
+   of ENGINE_CROWD of it
+   through ``distrib.make_batched_step`` ("group", one frame- and one
+   composite-crowd launch a frame, each character within CROWD_TOL of its
+   single step), and ms per frame of ``Engine.render`` (readback
+   included) and of ``make_step`` in turns;
 5. timing: milliseconds per frame of each path (host clock over
    state-carrying steps, the nine paths twice in turns in one call), and
    each kernel's device time (torch.profiler's records of its launches)
@@ -144,6 +165,23 @@ CROWD_ODD = 3
 # bones moved c * RIG_NUDGE along x
 RIG_CROWD = 8
 RIG_NUDGE = 1e-3
+# the Engine (phase 4d): testing.make_pmx_spec(ENGINE_SEED, "flagship")
+# written to files and loaded through Engine at the main frame size,
+# ENGINE_FRAMES rendered at 1/60 s; ENGINE_SMALL_FRAMES at ENGINE_SMALL on
+# the card and on the CPU; a crowd of ENGINE_CROWD characters of the loaded
+# model at ENGINE_CROWD_SIZE for ENGINE_CROWD_FRAMES frames, clip starts
+# ENGINE_STAGGER s apart; Engine.render and make_step timed over
+# ENGINE_TIMED frames a turn, two turns each
+ENGINE_SEED = 0
+ENGINE_FRAMES = 30
+ENGINE_SMALL = (256, 128)
+ENGINE_SMALL_FRAMES = 2
+ENGINE_CROWD = 3
+ENGINE_CROWD_SIZE = 256
+ENGINE_CROWD_FRAMES = 2
+ENGINE_STAGGER = 0.4
+ENGINE_TIMED = 8
+ENGINE_BREATH = {"上半身": 0.05, "首": 0.02}
 W, H = 1920, 1080
 # bench.py's parity_fps config: bilinear albedo from the quad table, level
 # 0, both layers at full res; its frame within PARITY_TOL of the 4-tap
@@ -691,6 +729,281 @@ def crowd_phase(dev, model, breath, counters: dict, check) -> dict:
                                                                                 **fkw),
                                  "hybrid_kernel", frame_bound(ft, tables, o_h,
                                                               cfg.msaa_samples))}}
+
+
+def engine_phase(dev, smi: str, counters: dict, W: int, H: int) -> dict:
+    """Phase 4d: the loaders and the Engine on a flagship-width model
+    written to files (see the module docstring) -> the Engine path's
+    launches per frame and its timings."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import Engine, EngineConfig, bridge, distrib, testing
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.core import math3d as m3
+    from reze_tpu_torch.core.build import BuiltModel
+    from reze_tpu_torch.formats import native
+    from reze_tpu_torch.formats.pmx import load_pmx
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.render import pipeline, pipeline_gpu
+    from reze_tpu_torch.step import make_step
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as scene_dir:
+        t0 = time.perf_counter()
+        spec = testing.make_pmx_spec(ENGINE_SEED, "flagship")
+        pmx_path, vmd_path = testing.write_scene(scene_dir, spec)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.library()
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pmx = load_pmx(pmx_path)
+        parse_s = time.perf_counter() - t0
+        cfg = EngineConfig(width=W, height=H)
+        t0 = time.perf_counter()
+        built = BuiltModel(pmx, scene_dir, cfg, device="cpu")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bridge.from_jax_arrays(built.arrays, dev)
+        sync()
+        move_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = Engine(cfg, device=dev).load_model(pmx_path).load_animation(vmd_path)
+        sync()
+        load_s = time.perf_counter() - t0
+        model = engine.model.arrays
+        geom = model.geometry
+        tris = [(geom.outline_class_ranges if outline else geom.class_ranges)[cls][1]
+                for cls, _, outline in pipeline_gpu._PASS_SPECS]
+        phase("engine", model=f"{geom.n_vertices}_vertices_{geom.tris.shape[0]}_tri_rows",
+              bones=model.skeleton.n_bones, morphs=model.morphs.n_morphs,
+              bodies=model.physics.n_bodies, joints=model.physics.n_joints,
+              write_seconds=f"{write_s:.3f}", native_build_seconds=f"{native_s:.3f}",
+              parse_seconds=f"{parse_s:.3f}", build_seconds=f"{build_s:.3f}",
+              move_seconds=f"{move_s:.3f}", engine_load_seconds=f"{load_s:.3f}",
+              triangles_per_pass=tris)
+        require(geom.n_vertices == 28842 and tris[0] == 26583 and tris[0] > 8192,
+                ("flagship widths", geom.n_vertices, tris))
+
+        # the clip with breathing, counts set to 0 just before and read after
+        engine.play_animation(breath_bones=ENGINE_BREATH)
+        for fn in counters.values():
+            fn.launches = 0
+        frames, overflow, before = [], [], None
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(ENGINE_FRAMES):
+            before = engine.state
+            frames.append(engine.render(1 / 60))
+            overflow.append((int(engine.state.diag.pair_overflow),
+                             int(engine.state.diag.contact_overflow)))
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        covered = [float((fr.max(-1) > 0).mean()) for fr in frames]
+        phase("engine", frames=ENGINE_FRAMES, shape=frames[0].shape, dtype=frames[0].dtype,
+              covered_min_max=[round(min(covered), 4), round(max(covered), 4)],
+              overflow_max=[max(o[0] for o in overflow), max(o[1] for o in overflow)],
+              launches=launches, seconds=f"{seconds:.3f}")
+        require(all(fr.dtype == np.uint8 and fr.shape == (H, W, 3) for fr in frames),
+                "engine frame type")
+        require(min(covered) > 0.05, ("engine covered fraction", covered))
+        require(all(o == (0, 0) for o in overflow), ("engine overflow", overflow))
+        want = {k: ENGINE_FRAMES * int(k in ("frame", "composite")) for k in counters}
+        require(launches == want, ("engine launches", launches, want))
+        require(np.abs(frames[-1].astype(int) - frames[0]).max() > 30, "the clip moves")
+
+        # the clip's camera drives the view: the last frame again from the
+        # state before it, through make_step with the track's view and
+        # with the orbit camera's
+        dt = torch.tensor(1 / 60, device=dev)
+        clip_t = float(before.time) + 1 / 60 - float(before.play_t0)
+        pose = sampler.sample_camera(engine._camera_track,
+                                     torch.tensor(clip_t, dtype=torch.float32, device=dev))
+        cam = engine.camera
+        vp_t, eye_t = sampler.camera_view_proj(*pose, cam.aspect, cam.near, cam.far)
+        quant = lambda f: torch.round(f.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()  # noqa: E731
+        args = (engine._lights, engine._track, engine._breath)
+        f_track = quant(engine._step_fn(before, dt, vp_t, eye_t, *args)[1])
+        f_orbit = quant(engine._step_fn(before, dt, cam.view_proj(dev), cam.position(dev),
+                                        *args)[1])
+        same_t = float((np.abs(f_track.astype(int) - frames[-1]).max(-1) <= 1).mean())
+        same_o = float((np.abs(f_orbit.astype(int) - frames[-1]).max(-1) <= 1).mean())
+        phase("engine_check", camera="vmd_track", within_1_255=same_t, orbit_within_1_255=same_o)
+        require(same_t >= 0.99 and same_o < 0.9, ("the clip's camera drives the view", same_t,
+                                                  same_o))
+
+        # the frame and composite kernels against their twins on this
+        # model's own 1080p tables (the state before the last frame)
+        sim = engine._step_fn.simulate(before, dt, engine._track, engine._breath)
+        dims = pipeline_gpu.make_dims_fast(cfg)
+        tables = pipeline_gpu._apply_mat_mod(
+            SG.pack_shade_tables(model.materials, model.atlas), sim[10])
+        ft = pipeline_gpu._build_group_tables(model, cfg, dims, tables, sim[7], sim[8], vp_t,
+                                              sim[9])
+        use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model)
+        fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, use_mips=use_mips,
+                   lod_bias=lod_bias)
+        fargs = (ft, tables, engine._lights,
+                 cfg.rim_light_intensity, eye_t, m3.mat4_inverse(vp_t).contiguous())
+        o_k = FG.render_megakernel(*fargs, **fkw)
+        o_t = FG.render_megakernel_twin(*fargs, **fkw)
+        frac, frame_err = testing.bit_diff(o_k, o_t)
+        ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
+                   with_bloom=cfg.enable_bloom)
+        atlas = model.atlas.mip_flat.contiguous()
+        img_k, seed_k = CG.composite(o_t, atlas, **ckw)
+        img_t, seed_t = CG.composite_twin(o_t, atlas, **ckw)
+        comp_err = max((img_k - img_t).abs().max().item(), (seed_k - seed_t).abs().max().item())
+        phase("check", kernel="frame", tables=f"engine_{W}x{H}", pairs=int(ft.counts.sum()),
+              equal_frac=frac, max_abs_err=frame_err)
+        phase("check", kernel="composite", tables=f"engine_{W}x{H}", max_abs_err=comp_err)
+        require(frac == 1.0, ("frame kernel on the engine's tables", frac, frame_err))
+        require(comp_err <= 1e-6, ("composite on the engine's tables", comp_err))
+
+        small = engine_small_check(dev, pmx_path, vmd_path)
+
+        # a crowd of the loaded model, each character with its own clip start
+        ccfg = EngineConfig(width=ENGINE_CROWD_SIZE, height=ENGINE_CROWD_SIZE)
+        n = ENGINE_CROWD
+        cams = [Camera(alpha=np.pi + 0.25 * (c - n // 2), beta=np.pi / 2.2, radius=30.0,
+                       target=(0.0, 10.0, 0.0), aspect=1.0) for c in range(n)]
+        states = distrib.batch_state(model, n)
+        states = dataclasses.replace(
+            states, playing=torch.ones(n, dtype=torch.bool, device=dev),
+            play_t0=-ENGINE_STAGGER * torch.arange(n, dtype=torch.float32, device=dev))
+        cargs = (dt, torch.stack([c.view_proj(dev) for c in cams]),
+                 torch.stack([c.position(dev) for c in cams]),
+                 pipeline.make_lights(ccfg, dev), engine._track, engine._breath)
+        crowd_step = distrib.make_batched_step(model, ccfg)
+        for fn in counters.values():
+            fn.launches = 0
+        for _ in range(ENGINE_CROWD_FRAMES):
+            before_c = states
+            states, cframes = crowd_step(states, *cargs)
+        sync()
+        crowd_launches = {k: fn.launches for k, fn in counters.items()}
+        single = make_step(model, ccfg)
+        err = 0.0
+        for c in range(n):
+            _, f1 = single(distrib._map(lambda x: x[c], before_c), dt, cargs[1][c],
+                           cargs[2][c], *cargs[3:])
+            err = max(err, (f1 - cframes[c]).abs().max().item())
+        phase("engine_check", crowd=n, size=ENGINE_CROWD_SIZE, frames=ENGINE_CROWD_FRAMES,
+              morphs=model.morphs.n_morphs, launches=crowd_launches,
+              against="single_step_per_character", max_abs_err=err)
+        want = {k: ENGINE_CROWD_FRAMES * int(k in ("frame_crowd", "composite_crowd"))
+                for k in counters}
+        require(crowd_launches == want, ("engine crowd launches", crowd_launches, want))
+        require(err <= CROWD_TOL, ("engine crowd against the single step", err))
+        require(int(states.diag.pair_overflow.max()) == 0, "engine crowd pair overflow")
+
+        # Engine.render (readback included) and make_step, in turns
+        vp, eye = cam.view_proj(dev), cam.position(dev)
+        render_ms, step_ms = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(ENGINE_TIMED):
+                engine.render(1 / 60)
+            render_ms.append((time.perf_counter() - t0) / ENGINE_TIMED * 1e3)
+            state = engine.state
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(ENGINE_TIMED):
+                state, _ = engine._step_fn(state, dt, vp, eye, *args)
+            sync()
+            step_ms.append((time.perf_counter() - t0) / ENGINE_TIMED * 1e3)
+        phase("engine_timing", card=smi, size=f"{W}x{H}",
+              ms_per_frame_engine_render="/".join(f"{x:.3f}" for x in render_ms),
+              ms_per_frame_make_step="/".join(f"{x:.3f}" for x in step_ms),
+              gpu_memory_mb=engine.get_stats().gpu_memory)
+    return {"launches": {k: launches[k] // ENGINE_FRAMES for k in ("frame", "composite")},
+            "small": small,
+            "crowd_launches": {k: crowd_launches[k] // ENGINE_CROWD_FRAMES
+                               for k in ("frame_crowd", "composite_crowd")},
+            "render_ms": render_ms, "step_ms": step_ms}
+
+
+def engine_small_check(dev, pmx_path: str, vmd_path: str) -> dict:
+    """The model at ENGINE_SMALL through the Engine on the card and on the
+    CPU, ENGINE_SMALL_FRAMES frames of the clip at 1/60 s. Each frame holds
+    the share of pixels more than 1/255 from the CPU's frame, the card's
+    against the larger of the CPU's own witnesses' (the same CPU run with
+    dt 1 and 2 ulps longer): the card's share within RIG_SPREAD of the
+    witnesses', or within phase 6's 1 %, whichever is larger. The bound is
+    relative because this model is not determined to 1/255 by its float32
+    inputs: at this size a pixel holds many triangles' fragments, and a
+    one-ulp change of the clip time moves a few percent of pixels past
+    1/255 (a flipped depth order among them, an extrapolated normal).
+    Also printed: the card's render of the CPU's own pose (its simulate
+    outputs moved to the card) against the CPU's, and the largest vertex
+    gap between the two devices' poses. -> the shares and gaps."""
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import Engine, EngineConfig
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.render import pipeline_gpu
+
+    sw, sh = ENGINE_SMALL
+    cfg = EngineConfig(width=sw, height=sh)
+    dts = {"cpu": 1 / 60, "gpu": 1 / 60}
+    dt = np.float32(1 / 60)
+    for k in (1, 2):
+        dt = np.nextafter(dt, np.float32(1))
+        dts[f"witness{k}"] = float(dt)
+    engines = {}
+    for name in dts:
+        e = Engine(cfg, device=dev if name == "gpu" else "cpu")
+        e.load_model(pmx_path).load_animation(vmd_path)
+        e.play_animation(breath_bones=ENGINE_BREATH)
+        engines[name] = e
+    quant = lambda f: torch.round(f.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()  # noqa: E731
+    near = lambda a, b: np.abs(a.astype(int) - b).max(-1) <= 1  # noqa: E731
+    out = {k: [] for k in ("gpu", "witness1", "witness2", "render_only", "pose_gap")}
+    for _ in range(ENGINE_SMALL_FRAMES):
+        ec, eg = engines["cpu"], engines["gpu"]
+        # the card's render of the CPU's pose, from the states before this frame
+        clip_t = float(ec.state.time) + dts["cpu"] - float(ec.state.play_t0)
+        pose = sampler.sample_camera(ec._camera_track, torch.tensor(clip_t))
+        vp, eye = sampler.camera_view_proj(*pose, ec.camera.aspect, ec.camera.near,
+                                           ec.camera.far)
+        sim_c = ec._step_fn.simulate(ec.state, torch.tensor(dts["cpu"]), ec._track, ec._breath)
+        sim_g = eg._step_fn.simulate(eg.state, torch.tensor(dts["gpu"], device=dev), eg._track,
+                                     eg._breath)
+        out["pose_gap"].append(float((sim_g[7].cpu() - sim_c[7]).abs().max()))
+        to = lambda x: None if x is None else x.to(dev)  # noqa: E731
+        dims = pipeline_gpu.make_dims_fast(cfg)
+        f_c = quant(pipeline_gpu.render_frame_mega(
+            ec.model.arrays, cfg, dims, sim_c[7], sim_c[8], vp, eye, ec._lights, uvs=sim_c[9],
+            mat_mod=sim_c[10])[0])
+        f_g = quant(pipeline_gpu.render_frame_mega(
+            eg.model.arrays, cfg, dims, to(sim_c[7]), to(sim_c[8]), to(vp), to(eye), eg._lights,
+            uvs=to(sim_c[9]), mat_mod=None if sim_c[10] is None else tuple(
+                to(x) for x in sim_c[10]))[0])
+        out["render_only"].append(float(near(f_g, f_c).mean()))
+        frames = {name: e.render(dts[name]) for name, e in engines.items()}
+        for name in ("gpu", "witness1", "witness2"):
+            out[name].append(float(near(frames[name], frames["cpu"]).mean()))
+    phase("engine_check", step=f"{sw}x{sh}_gpu_vs_cpu", frames=ENGINE_SMALL_FRAMES,
+          **{f"within_1_255_{k}" if k != "pose_gap" else k: [round(x, 6) for x in v]
+             for k, v in out.items()})
+    for g, w1, w2 in zip(out["gpu"], out["witness1"], out["witness2"]):
+        allowed = max(0.01, RIG_SPREAD * (1.0 - min(w1, w2)))
+        require(1.0 - g <= allowed, ("engine small frames, GPU vs CPU", out))
+    return out
 
 
 def crowd_timing(dev, smi: str, model, breath, crowd: dict) -> dict:
@@ -1363,6 +1676,9 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
     # 4c. the crowd (distrib.make_batched_step), then the batched kernels
     # on its own inputs
     crowd = crowd_phase(dev, model, breath, counters, check_crowd)
+
+    # 4d. the loaders and the Engine on a flagship-width model
+    engine_phase(dev, smi, counters, W, H)
 
     # 5. timing: host clock over state-carrying steps (the step is
     # host-bound), the paths in turns in this one call; the kernels' own

@@ -1,5 +1,9 @@
-"""Keyframe sampling as a function of time (counterpart of
-``reze_tpu/anim/sampler.py``).
+"""Keyframe tracks and their sampling as a function of time (counterpart
+of ``reze_tpu/anim/sampler.py``).
+
+``build_animation`` pads a parsed VMD clip's bone and morph keys into an
+``AnimationTrack`` and ``build_camera_track`` its camera keys into a
+:class:`CameraTrack`, on the host, then moves them to the device.
 
 Bone tracks ease per channel with MMD's cubic Bezier curves (inverted by a
 fixed count of Newton steps); morph tracks interpolate linearly. The
@@ -12,38 +16,78 @@ shared by all (tables (J, K, ...)) or one per character (tables (C, J, K,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .. import bridge
 from ..core import math3d as m3
 from ..core.types import AnimationTrack
+from ..formats.vmd import VMDMotion
 
 Tensor = torch.Tensor
 
 
-def empty_animation(j_pad: int, nm_pad: int, device="cuda") -> AnimationTrack:
-    """A track with no keys: every bone and morph untracked."""
-    interp = np.zeros((j_pad, 1, 4, 4), np.float32)
+def build_animation(motion: VMDMotion, bone_name_to_id: dict[str, int],
+                    morph_name_to_id: dict[str, int], j_pad: int, nm_pad: int,
+                    device="cuda") -> AnimationTrack:
+    """A clip's bone and morph keys, grouped by name and padded to the
+    longest track (times with +inf, values with the track's last key),
+    -> an ``AnimationTrack`` on ``device``. Names the model lacks are
+    dropped; untracked bones ease with MMD's default curve (20, 20, 107,
+    107) / 127."""
+    tracks = motion.grouped_bone_tracks()
+    mapped = {bone_name_to_id[name]: tr for name, tr in tracks.items()
+              if name in bone_name_to_id}
+    k = max([len(tr["t"]) for tr in mapped.values()], default=1)
+
+    times = np.full((j_pad, k), np.inf, np.float32)
+    rots = np.zeros((j_pad, k, 4), np.float32)
+    rots[..., 3] = 1.0
+    poss = np.zeros((j_pad, k, 3), np.float32)
+    interp = np.zeros((j_pad, k, 4, 4), np.float32)
     interp[..., 0] = 20.0 / 127.0
     interp[..., 1] = 20.0 / 127.0
     interp[..., 2] = 107.0 / 127.0
     interp[..., 3] = 107.0 / 127.0
-    rots = np.zeros((j_pad, 1, 4), np.float32)
-    rots[..., 3] = 1.0
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
-    i64 = lambda n: torch.zeros(n, dtype=torch.int64, device=device)  # noqa: E731
-    return AnimationTrack(
-        times=torch.full((j_pad, 1), float("inf"), device=device),
-        rotations=f32(rots),
-        positions=torch.zeros((j_pad, 1, 3), device=device),
-        interp=f32(interp),
-        n_keys=i64(j_pad),
-        has_track=torch.zeros(j_pad, dtype=torch.bool, device=device),
-        morph_times=torch.full((nm_pad, 1), float("inf"), device=device),
-        morph_values=torch.zeros((nm_pad, 1), device=device),
-        morph_n_keys=i64(nm_pad),
-        duration=0.0,
-    )
+    n_keys = np.zeros(j_pad, np.int32)
+    has_track = np.zeros(j_pad, bool)
+    for j, tr in mapped.items():
+        n = len(tr["t"])
+        times[j, :n] = tr["t"]
+        rots[j, :n] = tr["rot"]
+        poss[j, :n] = tr["pos"]
+        interp[j, :n] = tr["interp"]
+        rots[j, n:] = tr["rot"][-1]
+        poss[j, n:] = tr["pos"][-1]
+        n_keys[j] = n
+        has_track[j] = True
+
+    mtracks = motion.grouped_morph_tracks()
+    mmapped = {morph_name_to_id[name]: tr for name, tr in mtracks.items()
+               if name in morph_name_to_id}
+    km = max([len(tr["t"]) for tr in mmapped.values()], default=1)
+    mtimes = np.full((nm_pad, km), np.inf, np.float32)
+    mvals = np.zeros((nm_pad, km), np.float32)
+    mn = np.zeros(nm_pad, np.int32)
+    for i, tr in mmapped.items():
+        n = len(tr["t"])
+        mtimes[i, :n] = tr["t"]
+        mvals[i, :n] = tr["w"]
+        mvals[i, n:] = tr["w"][-1]
+        mn[i] = n
+
+    track = AnimationTrack(
+        times=times, rotations=rots, positions=poss, interp=interp, n_keys=n_keys,
+        has_track=has_track, morph_times=mtimes, morph_values=mvals, morph_n_keys=mn,
+        duration=float(motion.duration_seconds()))
+    return bridge.from_jax_arrays(track, device)
+
+
+def empty_animation(j_pad: int, nm_pad: int, device="cuda") -> AnimationTrack:
+    """A track with no keys: every bone and morph untracked."""
+    return build_animation(VMDMotion(), {}, {}, j_pad, nm_pad, device)
 
 
 def bezier_y(x: Tensor, x1: Tensor, y1: Tensor, x2: Tensor, y2: Tensor) -> Tensor:
@@ -147,3 +191,82 @@ def breathing_rotation(base_rot: Tensor, ranges: Tensor, t_since_start: Tensor,
     q_start = m3.quat_mul(base_rot, euler_x(sign_start * ones))
     q_target = m3.quat_mul(base_rot, euler_x(sign_target * ones))
     return m3.quat_slerp(q_start, q_target, u)
+
+
+# ---------------------------------------------------------------------------
+# VMD camera track
+# ---------------------------------------------------------------------------
+
+
+class CameraTrack(NamedTuple):
+    """Padded camera keys. MMD's conventions: ``distance`` is stored
+    negative (the camera sits at target + R @ (0, 0, distance)), the
+    rotation is (rx, ry, rz) euler with the X angle display-negated, and
+    the field of view is kept here in radians."""
+
+    times: Tensor  # (Kc,) seconds, +inf padded
+    distance: Tensor  # (Kc,)
+    target: Tensor  # (Kc, 3)
+    rotation: Tensor  # (Kc, 3)
+    fov: Tensor  # (Kc,) radians
+    n_keys: int
+
+
+def build_camera_track(motion: VMDMotion, fps: float = 30.0,
+                       device="cuda") -> CameraTrack | None:
+    """A clip's camera keys sorted by frame -> CameraTrack on ``device``,
+    or None when the clip has no camera keys."""
+    n = int(motion.camera_frames.shape[0])
+    if n == 0:
+        return None
+    order = np.argsort(motion.camera_frames, kind="stable")
+    k = max(n, 2)
+    times = np.full(k, np.inf, np.float32)
+    times[:n] = motion.camera_frames[order] / fps
+
+    def pad(a, shape):
+        out = np.zeros(shape, np.float32)
+        out[:n] = a[order]
+        if n < shape[0]:
+            out[n:] = out[n - 1]
+        return torch.as_tensor(out, device=device)
+
+    return CameraTrack(
+        times=torch.as_tensor(times, device=device),
+        distance=pad(motion.camera_distance, (k,)),
+        target=pad(motion.camera_position, (k, 3)),
+        rotation=pad(motion.camera_rotation, (k, 3)),
+        fov=pad(np.deg2rad(motion.camera_fov), (k,)),
+        n_keys=n,
+    )
+
+
+def sample_camera(track: CameraTrack, t: Tensor):
+    """Linear interpolation at time ``t`` () -> (distance, target (3,),
+    rotation (3,), fov)."""
+    k0, k1, u = _segment(track.times[None, :], t)
+    k0, k1, u = k0[0], k1[0], u[0]
+
+    def lerp(a):
+        return a[k0] + u * (a[k1] - a[k0])
+
+    return lerp(track.distance), lerp(track.target), lerp(track.rotation), lerp(track.fov)
+
+
+def camera_view_proj(distance, target, rotation, fov, aspect, near=0.05, far=1000.0):
+    """An MMD camera pose -> (view_proj (4, 4), eye (3,)).
+
+    eye = target + Ry(ry) Rx(-rx) Rz(rz) @ (0, 0, distance): a negative
+    distance puts the camera in front of the target along the rotated -Z,
+    as MMD does."""
+    rx, ry, rz = -rotation[0], rotation[1], rotation[2]
+    zero = torch.zeros_like(rx)
+    qy = torch.stack([zero, torch.sin(ry / 2), zero, torch.cos(ry / 2)])
+    qx = torch.stack([torch.sin(rx / 2), zero, zero, torch.cos(rx / 2)])
+    qz = torch.stack([zero, zero, torch.sin(rz / 2), torch.cos(rz / 2)])
+    q = m3.quat_mul(m3.quat_mul(qy, qx), qz)
+    eye = target + m3.quat_rotate(q, torch.stack([0.0 * distance, 0.0 * distance, distance]))
+    up = m3.quat_rotate(q, m3.const((0.0, 1.0, 0.0), q.dtype, q.device))
+    view = m3.look_at_lh(eye, target, up)
+    proj = m3.perspective_lh(fov, aspect, near, far, device=q.device)
+    return proj @ view, eye

@@ -39,6 +39,16 @@ def take_rows(tab: Tensor, idx: Tensor) -> Tensor:
     return torch.gather(tab, -2, idx[..., None].expand(idx.shape + tab.shape[-1:]))
 
 
+def morph_sum(weights: Tensor, table: Tensor) -> Tensor:
+    """sum_m weights[..., m] * table[m] -> (..., *table.shape[1:]), summed
+    in float64 and rounded once. A float32 matrix product sums in an order
+    that depends on its batch (a matrix-vector product for one character,
+    a matrix product for a crowd), so a crowd's morphed rows would differ
+    in the last bit from its characters' own; rounded once from float64,
+    they agree."""
+    return torch.tensordot(weights.double(), table.double(), dims=([-1], [0])).to(table.dtype)
+
+
 def ease_in_out(t: Tensor) -> Tensor:
     """Quadratic ease-in-out."""
     return torch.where(t < 0.5, 2.0 * t * t, 1.0 - torch.square(-2.0 * t + 2.0) / 2.0)
@@ -163,9 +173,10 @@ def mat4_inverse(m: Tensor) -> Tensor:
 
 def perspective_lh(fov: float, aspect: float, near: float, far: float,
                    device="cuda") -> Tensor:
-    """Left-handed perspective, depth in [0 (near), 1 (far)]. The entries
-    are rounded to float32 in the same order as the JAX version."""
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    """Left-handed perspective, depth in [0 (near), 1 (far)]; each argument
+    a number or a 0-d tensor. The entries are rounded to float32 in the
+    same order as the JAX version."""
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     fov, aspect, near, far = f32(fov), f32(aspect), f32(near), f32(far)
     f = 1.0 / torch.tan(fov / 2.0)
     range_inv = 1.0 / (far - near)

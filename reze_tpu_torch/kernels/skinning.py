@@ -4,7 +4,8 @@ The palette, morph weights and outputs may carry leading (character) axes;
 the geometry is shared. The 3x4 skin products sum each coordinate in one
 fixed order, as ``raster.project_corners`` does: a batched matrix product
 may sum in another order for another crowd size, and a crowd's vertices
-would then differ in the last bit from its characters' own."""
+would then differ in the last bit from its characters' own; the morph
+blend sums in float64 for the same reason (``math3d.morph_sum``)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def morphed_positions(geom: Geometry, morphs: Morphs, weights: Tensor) -> Tensor
     """Base positions + weighted vertex-morph offsets."""
     if morphs.n_morphs == 0:
         return geom.positions
-    return geom.positions + torch.einsum("...m,mvc->...vc", weights, morphs.offsets)
+    return geom.positions + m3.morph_sum(weights, morphs.offsets)
 
 
 def blend_palette_gather(skin: Skinning, palette: Tensor) -> Tensor:

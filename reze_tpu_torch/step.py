@@ -95,23 +95,22 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
 
         # 2b. bone morphs (rotations stored as rotation vectors)
         if model.morphs.has_bone:
-            trans = trans + torch.einsum("...m,mjc->...jc", mw, model.morphs.bone_trans)
-            rv = torch.einsum("...m,mjc->...jc", mw, model.morphs.bone_rotvec)
+            trans = trans + m3.morph_sum(mw, model.morphs.bone_trans)
+            rv = m3.morph_sum(mw, model.morphs.bone_rotvec)
             rot = m3.quat_mul(rot, m3.quat_from_rotvec(rv))
 
         # 2c. uv morphs
         uvs = None
         if model.morphs.has_uv:
-            uvs = model.geometry.uvs + torch.einsum("...m,mvc->...vc", mw,
-                                                    model.morphs.uv_offsets)
+            uvs = model.geometry.uvs + m3.morph_sum(mw, model.morphs.uv_offsets)
 
         # 2d. material morphs -> alpha / edge-alpha factors
         mat_mod = None
         if model.morphs.has_material:
-            mat_mod = (1.0 + mw @ model.morphs.mat_alpha_dmul,
-                       mw @ model.morphs.mat_alpha_add,
-                       1.0 + mw @ model.morphs.mat_edge_a_dmul,
-                       mw @ model.morphs.mat_edge_a_add)
+            mat_mod = (1.0 + m3.morph_sum(mw, model.morphs.mat_alpha_dmul),
+                       m3.morph_sum(mw, model.morphs.mat_alpha_add),
+                       1.0 + m3.morph_sum(mw, model.morphs.mat_edge_a_dmul),
+                       m3.morph_sum(mw, model.morphs.mat_edge_a_add))
 
         # 3. CCD IK, then FK
         if cfg.enable_ik and model.ik.n_chains > 0:
