@@ -107,10 +107,29 @@ Phases, each printed on its own line:
    and device items per frame;
 8. the rig's cost: ms per frame by the host clock, and under
    torch.profiler device ms and kernel launches per frame and per
-   substep. Last, because its profiles hold tens of thousands of launches
+   substep. Late, because its profiles hold tens of thousands of launches
    a frame; (8b) the solver on RIG_CROWD copies of the rig at once, each
    copy within RIG_EARLY_TOL of the copy run alone over RIG_EARLY frames,
-   with its ms, device ms and launches per frame beside the single rig's.
+   with its ms, device ms and launches per frame beside the single rig's;
+9. (9a) empty draw classes: ``testing.make_pmx_spec(0, "small")`` with its
+   hair class emptied and with its transparent outline class emptied
+   (``testing.empty_class_spec``) on every route at 256x128 (the four
+   megakernels, the per-pass path layered and not, the parity config,
+   the crowd's "group" and "stream" routes at two characters, and
+   ``renderer="xla"``), each frame equal bit for bit to its witness's (the
+   same scene with one triangle behind the cameras in that class); (9b)
+   the oracle (``renderer="xla"``, plain torch) on the card against the
+   CPU at 128x64 on the synthetic model, >= 99 % of pixels within 1/255
+   over two frames; (9c) ``make_step(renderer="xla")`` at 1920x1080 on the
+   written flagship-width model (``max_tris_per_bin=4096``), ms per frame
+   in two turns of two frames, and its frame against the per-pass fast
+   renderer's on the same pose under the JAX package's own bound between
+   the two; (9d) the front ends as ``python -m reze_tpu_torch.examples.
+   <name>`` processes on the written flagship-width model: the demo (21
+   frames at 512x512 with the drag, its FPS, PNGs and GIF), the crowd (32
+   characters at 256x256 in one chunk, its char-frames/s and montage) and
+   serve at 480x360 (every route answered, the /frame round trip in ms),
+   each stopped; the phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -183,6 +202,41 @@ ENGINE_STAGGER = 0.4
 ENGINE_TIMED = 8
 ENGINE_BREATH = {"上半身": 0.05, "首": 0.02}
 W, H = 1920, 1080
+# phase 9a: the empty-class variants of testing.make_pmx_spec(EMPTY_SEED,
+# "small") at EMPTY_SIZE on every route, a crowd of two on the crowd routes
+EMPTY_SEED = 0
+EMPTY_SIZE = (256, 128)
+EMPTY_TARGET = (0.0, 12.5, 0.0)
+EMPTY_RADIUS = 14.0
+EMPTY_CROWD_ALPHAS = (-0.15, 0.15)
+EMPTY_ROUTES = {
+    "group": {}, "hybrid": dict(rasterizer="hybrid"), "mxu": dict(rasterizer="mxu"),
+    "stream": dict(rasterizer="stream"), "per_pass": dict(use_megakernel=False),
+    "non_layered": dict(layered_shading=False),
+    "parity": dict(albedo_bilinear=True, albedo_mips=False, albedo_half_visible=False,
+                   albedo_half_occluded=False),
+    "crowd_group": dict(rasterizer="group"), "crowd_stream": dict(rasterizer="stream"),
+    "xla": dict(renderer="xla"),
+}
+# phases 9b-c: the oracle (renderer="xla"): tests/test_render_pipeline.py's
+# config at 128x64; at 1080p on the flagship-width model with serve.py's
+# bin cap, ORACLE_TURNS turns of ORACLE_TIMED frames
+ORACLE_SMALL_CFG = dict(width=128, height=64, tile_size=64, max_tris_per_bin=16,
+                        enable_bloom=False, albedo_half_visible=False,
+                        albedo_half_occluded=False, albedo_mips=False, renderer="xla",
+                        enable_physics=False)
+ORACLE_CFG = dict(max_tris_per_bin=4096, enable_bloom=False, albedo_half_visible=False,
+                  albedo_half_occluded=False, albedo_mips=False, renderer="xla")
+ORACLE_TURNS = 2
+ORACLE_TIMED = 2
+# phase 9d: the front ends on the flagship-width model
+DEMO_FRAMES = 21  # the drag turns at frame 20
+DEMO_SIZE = 512
+FRONTEND_CROWD = (32, 256, 32)  # characters, size, chunk: the README's crowd
+FRONTEND_CROWD_FRAMES = 3
+SERVE_SIZE = "480x360"
+SERVE_FRAMES = 5
+FRONTEND_TIMEOUT = 300
 # bench.py's parity_fps config: bilinear albedo from the quad table, level
 # 0, both layers at full res; its frame within PARITY_TOL of the 4-tap
 # composite's (tests/test_render_pipeline.py's quad-against-4-gather bound)
@@ -1106,6 +1160,326 @@ def rig_crowd_phase(dev, smi: str, pm, wq, wp, plan, single: dict) -> None:
           single_launches_per_frame=single["launches"])
 
 
+def empty_class_phase(dev) -> dict:
+    """Phase 9a: ``testing.make_pmx_spec(EMPTY_SEED, "small")`` with its
+    hair class emptied and with its transparent outline class emptied
+    (``testing.empty_class_spec``), each against its witness (one more
+    triangle in that class, behind the cameras) on every route at
+    EMPTY_SIZE, bit for bit -> {kind/route: seconds}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import distrib, testing
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.core.build import BuiltModel
+    from reze_tpu_torch.core.types import (CLASS_HAIR, CLASS_TRANSPARENT, EngineConfig,
+                                           init_scene_state)
+    from reze_tpu_torch.render import pipeline
+    from reze_tpu_torch.step import make_step
+
+    w, h = EMPTY_SIZE
+    base = dict(width=w, height=h, enable_physics=False)
+    d0 = EngineConfig()
+    cams = {a: Camera(alpha=d0.camera_alpha + a, beta=d0.camera_beta, radius=EMPTY_RADIUS,
+                      target=EMPTY_TARGET, aspect=w / h) for a in (0.0,) + EMPTY_CROWD_ALPHAS}
+    eye, target = cams[0.0].position("cpu").numpy(), np.asarray(EMPTY_TARGET, np.float32)
+    behind = target + 3.0 * (eye - target)  # behind the single camera and the crowd's
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    spec = testing.make_pmx_spec(EMPTY_SEED, "small")
+    seconds = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as scene_dir:
+        testing.write_scene(scene_dir, spec)
+        models = {(kind, wit): BuiltModel(testing.empty_class_spec(
+            spec, kind, behind if wit else None).model, scene_dir, EngineConfig(**base),
+            device=dev).arrays for kind in ("hair", "outline") for wit in (False, True)}
+    for (kind, wit), m in models.items():
+        ranges = m.geometry.outline_class_ranges if kind == "outline" else m.geometry.class_ranges
+        cls = CLASS_TRANSPARENT if kind == "outline" else CLASS_HAIR
+        require(ranges[cls][1] == int(wit), ("emptied class", kind, wit, ranges))
+    for kind in ("hair", "outline"):
+        for route, change in EMPTY_ROUTES.items():
+            t0 = time.perf_counter()
+            out = []
+            for wit in (False, True):
+                m = models[kind, wit]
+                cfg = EngineConfig(**base, **change)
+                j, nm = m.skeleton.j, m.morphs.offsets.shape[0]
+                bq = torch.zeros((j, 4), device=dev)
+                bq[:, 3] = 1.0
+                breath = {"mask": torch.zeros(j, dtype=torch.bool, device=dev),
+                          "ranges": torch.zeros(j, device=dev), "base": bq,
+                          "half_cycle": torch.tensor(2.0, device=dev),
+                          "start": torch.tensor(float("inf"), device=dev)}
+                crowd = route.startswith("crowd")
+                use = EMPTY_CROWD_ALPHAS if crowd else (0.0,)
+                vp = torch.stack([cams[a].view_proj(dev) for a in use])
+                eye_t = torch.stack([cams[a].position(dev) for a in use])
+                args = (torch.tensor(1 / 60, device=dev), vp if crowd else vp[0],
+                        eye_t if crowd else eye_t[0], pipeline.make_lights(cfg, dev),
+                        sampler.empty_animation(j, nm, dev), breath)
+                if crowd:
+                    state, frame = distrib.make_batched_step(m, cfg)(
+                        distrib.batch_state(m, len(use)), *args)
+                else:
+                    state, frame = make_step(m, cfg)(init_scene_state(m), *args)
+                out.append((frame.reshape(-1, h, w, 3), int(state.diag.pair_overflow.max())))
+            (f0, o0), (f1, o1) = out
+            covered = float((f0.sum(-1) > 0.01).float().mean((1, 2)).min())
+            equal = bool(torch.equal(f0, f1))
+            seconds[f"{kind}/{route}"] = time.perf_counter() - t0
+            phase("empty_class", kind=kind, route=route, chars=f0.shape[0], equal=equal,
+                  covered=round(covered, 4), overflow=[o0, o1])
+            require(equal, ("empty class against its witness", kind, route))
+            require(bool(torch.isfinite(f0).all()) and covered > 0.1 and o0 == o1 == 0,
+                    ("empty class frame", kind, route, covered, o0, o1))
+    return seconds
+
+
+def oracle_phase(dev, smi: str, w: int, h: int) -> dict:
+    """Phase 9b-c: ``renderer="xla"`` (the oracle, plain torch) on the
+    card against the CPU's run of the same code at 128x64 on the synthetic
+    model (phase 6's bound); then ``make_step(renderer="xla")`` at ``w`` x
+    ``h`` on the written flagship-width model, ms per frame in turns, and
+    its frame against the per-pass fast renderer's on the same pose under
+    the JAX package's own bound between the two (covered pixels off by
+    more than 0.12 under 15 %, footprints within 10 %) -> figures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.core.build import load_model
+    from reze_tpu_torch.core.types import EngineConfig, init_scene_state
+    from reze_tpu_torch.formats.vmd import load_vmd
+    from reze_tpu_torch.render import pipeline, pipeline_gpu
+    from reze_tpu_torch.step import make_step
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def rest_breath(j, d):
+        bq = torch.zeros((j, 4), device=d)
+        bq[:, 3] = 1.0
+        return {"mask": torch.zeros(j, dtype=torch.bool, device=d),
+                "ranges": torch.zeros(j, device=d), "base": bq,
+                "half_cycle": torch.tensor(2.0, device=d),
+                "start": torch.tensor(float("inf"), device=d)}
+
+    # 9b. the card against the CPU, the synthetic model at 128x64 (two
+    # texel columns keep the quads' u seam out, as in phase 6)
+    small = EngineConfig(**ORACLE_SMALL_CFG)
+    cam = Camera(alpha=np.pi, beta=np.pi / 2, radius=4.5, target=(0.0, 2.0, 0.0), aspect=2.0)
+    out = {}
+    t0 = time.perf_counter()
+    for d in ("cpu", dev):
+        m = testing.make_test_model(tex_hw=(16, 2), device=d)
+        j, nm = m.skeleton.j, m.morphs.offsets.shape[0]
+        step = make_step(m, small)
+        state, frames = init_scene_state(m), []
+        for _ in range(2):
+            state, fr = step(state, torch.tensor(1 / 60, device=d), cam.view_proj(d),
+                             cam.position(d), pipeline.make_lights(small, d),
+                             sampler.empty_animation(j, nm, d), rest_breath(j, d))
+            frames.append(fr.cpu().numpy())
+        require(int(state.diag.pair_overflow) == 0, "oracle pair overflow")
+        out[str(d)] = np.stack(frames)
+    diff = np.abs(out["cpu"] - out[str(dev)]).max(-1)
+    within = float((diff <= 1 / 255).mean())
+    covered = float((out["cpu"].sum(-1) > 0.01).mean())
+    phase("oracle_check", step="128x64_gpu_vs_cpu_xla", frames=2, within_1_255=within,
+          max_abs_err=float(diff.max()), covered=round(covered, 4),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    require(within >= 0.99 and covered > 0.05, ("xla 128x64 frame, GPU vs CPU", within))
+
+    # 9c. the oracle at w x h on the written flagship-width model
+    cfg = EngineConfig(width=w, height=h, **ORACLE_CFG)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    with tempfile.TemporaryDirectory(dir=build_dir) as scene_dir:
+        pmx_path, vmd_path = testing.write_scene(
+            scene_dir, testing.make_pmx_spec(ENGINE_SEED, "flagship"))
+        built = load_model(pmx_path, cfg, device=dev)
+        motion = load_vmd(vmd_path)
+    model = built.arrays
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    track = sampler.build_animation(motion, built.bone_name_to_id, built.morph_name_to_id, j,
+                                    nm, dev)
+    ocam = Camera(alpha=cfg.camera_alpha, beta=cfg.camera_beta, radius=cfg.camera_distance,
+                  target=cfg.camera_target, aspect=w / h)
+    lights = pipeline.make_lights(cfg, dev)
+    args = (ocam.view_proj(dev), ocam.position(dev), lights, track, rest_breath(j, dev))
+    dt = torch.tensor(1 / 60, device=dev)
+    step = make_step(model, cfg)
+    state = init_scene_state(model)
+    state = dataclasses.replace(state, playing=torch.tensor(True, device=dev))
+    t0 = time.perf_counter()
+    state, frame = step(state, dt, *args)  # the first frame, its host reads included
+    sync()
+    first_s = time.perf_counter() - t0
+    ms = []
+    for _ in range(ORACLE_TURNS):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(ORACLE_TIMED):
+            state, frame = step(state, dt, *args)
+        sync()
+        ms.append((time.perf_counter() - t0) / ORACLE_TIMED * 1e3)
+    # the same pose through the per-pass fast renderer
+    sim = step.simulate(state, dt, track, args[4])
+    pos, nrm, uvs, mat_mod = sim[7:]
+    oracle = pipeline.render_frame(model, cfg, pipeline.make_dims(cfg), pos, nrm, args[0],
+                                   args[1], lights, uvs=uvs, mat_mod=mat_mod).cpu().numpy()
+    fast, ovf = pipeline_gpu.render_frame_fast(
+        model, cfg, pipeline_gpu.make_dims_fast(cfg), None, pos, nrm, args[0], args[1],
+        lights, uvs=uvs, mat_mod=mat_mod)
+    fast = fast.cpu().numpy()
+    cov_o, cov_f = oracle.sum(-1) > 0.01, fast.sum(-1) > 0.01
+    covered = cov_o | cov_f
+    off = float((np.abs(oracle - fast).max(-1)[covered] > 0.12).mean())
+    footprint = abs(int(cov_o.sum()) - int(cov_f.sum())) / max(int(covered.sum()), 1)
+    phase("oracle", card=smi, size=f"{w}x{h}", tris=model.geometry.tris.shape[0],
+          max_tris_per_bin=cfg.max_tris_per_bin, first_frame_s=f"{first_s:.3f}",
+          ms_per_frame_xla_make_step="/".join(f"{x:.3f}" for x in ms),
+          frames_per_turn=ORACLE_TIMED)
+    phase("oracle_check", against="render_frame_fast", size=f"{w}x{h}",
+          covered=round(float(cov_o.mean()), 4), off_by_0_12=round(off, 5),
+          footprint_diff=round(footprint, 5), fast_pair_overflow=int(ovf))
+    require(np.isfinite(oracle).all() and cov_o.mean() > 0.05, "oracle 1080p frame")
+    require(off < 0.15 and footprint < 0.1 and int(ovf) == 0,
+            ("oracle against the fast renderer", off, footprint, int(ovf)))
+    return {"ms": ms, "first_s": first_s, "off": off, "footprint": footprint}
+
+
+def frontend_phase(dev, smi: str, scale: str = "flagship") -> dict:
+    """Phase 9d: the three front ends, each run as ``python -m
+    reze_tpu_torch.examples.<name>`` on the written flagship-width model
+    (``scale``, written once here), writing into a temporary directory: the demo's
+    FPS, PNGs and GIF; the crowd's char-frames/s and montage; serve's
+    routes, each answered, and its /frame round trip in ms. Every process
+    started here is stopped -> figures."""
+    import re
+    import subprocess
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.formats import image
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    device = ["--device", torch.device(dev).type]
+    res = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        pmx, vmd = testing.write_scene(work, testing.make_pmx_spec(ENGINE_SEED, scale))
+        scene = ["--model", pmx, "--motion", vmd] + device
+
+        def run(name, extra):
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", f"reze_tpu_torch.examples.{name}"]
+                               + scene + extra, cwd=root, capture_output=True, text=True,
+                               timeout=FRONTEND_TIMEOUT)
+            require(p.returncode == 0, (name, p.returncode, p.stdout[-2000:], p.stderr[-4000:]))
+            return p.stdout, time.perf_counter() - t0
+
+        # the demo
+        out_dir = os.path.join(work, "demo")
+        stdout, sec = run("demo", ["--frames", str(DEMO_FRAMES), "--size", str(DEMO_SIZE),
+                                   "--drag", "--out", out_dir])
+        fps = float(re.search(r"\(([0-9.]+) FPS\)", stdout).group(1))
+        first = image.load_image(os.path.join(out_dir, "frame_0000.png"))
+        with open(os.path.join(out_dir, "demo.gif"), "rb") as f:
+            gif = f.read()
+        n_png = len([f for f in os.listdir(out_dir) if f.endswith(".png")])
+        phase("frontend", name="demo", card=smi, size=f"{DEMO_SIZE}x{DEMO_SIZE}",
+              frames=DEMO_FRAMES, fps=fps, pngs=n_png, gif_bytes=len(gif),
+              process_seconds=f"{sec:.1f}")
+        require(n_png == DEMO_FRAMES and first.shape == (DEMO_SIZE, DEMO_SIZE, 4)
+                and first[..., :3].max() > 0, "demo frames")
+        require(gif[:6] == b"GIF89a" and gif[-1:] == b"\x3b"
+                and int.from_bytes(gif[6:8], "little") == DEMO_SIZE
+                and gif.count(b"\x21\xf9\x04") >= DEMO_FRAMES, "demo gif")
+        res["demo_fps"] = fps
+
+        # the crowd
+        out_dir = os.path.join(work, "crowd")
+        n, size, chunk = FRONTEND_CROWD
+        stdout, sec = run("crowd", ["--batch", str(n), "--size", str(size), "--chunk",
+                                    str(chunk), "--frames", str(FRONTEND_CROWD_FRAMES), "--out",
+                                    out_dir])
+        m = re.search(r"crowd step: ([0-9.]+) ms for (\d+) characters = ([0-9.]+) char-frames/s",
+                      stdout)
+        grid = image.load_image(os.path.join(out_dir, "crowd.png"))
+        covered = [float((grid[r:r + size, c:c + size, :3].max(-1) > 0).mean())
+                   for r in range(0, grid.shape[0], size)
+                   for c in range(0, grid.shape[1], size)][:n]  # black beside an odd last one
+        phase("frontend", name="crowd", card=smi, chars=n, size=f"{size}x{size}", chunk=chunk,
+              ms_per_crowd_step=float(m.group(1)), char_frames_per_s=float(m.group(3)),
+              montage=grid.shape, covered_min=round(min(covered), 4),
+              process_seconds=f"{sec:.1f}")
+        require(grid.shape == (-(-n // 2) * size, 2 * size, 4) and min(covered) > 0.02,
+                ("crowd montage", grid.shape, covered))
+        res["crowd_char_frames_per_s"] = float(m.group(3))
+
+        # serve: its own process, driven over HTTP, then stopped
+        proc = subprocess.Popen([sys.executable, "-m", "reze_tpu_torch.examples.serve"] + scene
+                                + ["--port", "0", "--size", SERVE_SIZE], cwd=root,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            url, lines = None, []
+            t_start = time.perf_counter()
+            while url is None and time.perf_counter() - t_start < FRONTEND_TIMEOUT:
+                line = proc.stdout.readline()
+                require(line != "" or proc.poll() is None, ("serve exited", "".join(lines)))
+                lines.append(line)
+                hit = re.search(r"serving on (http://127\.0\.0\.1:\d+)", line)
+                url = hit.group(1) if hit else None
+            require(url is not None, ("serve did not start", "".join(lines)))
+
+            def get(path):
+                with urllib.request.urlopen(url + path, timeout=120) as r:
+                    return r.headers["Content-Type"], r.read()
+
+            sw, sh = (int(v) for v in SERVE_SIZE.split("x"))
+            kind, page = get("/")
+            require(kind == "text/html" and b"<canvas" in page, "serve page")
+            a = image.decode_image(get("/frame")[1])
+            require(a.shape == (sh, sw, 4) and a[..., :3].max() > 0, ("serve frame", a.shape))
+            require(get("/input?orbit=40,10")[1] == b"ok" and get("/input?pan=5,5")[1] == b"ok"
+                    and get("/input?zoom=30")[1] == b"ok", "serve input")
+            rt = []
+            for _ in range(SERVE_FRAMES):
+                t0 = time.perf_counter()
+                kind, body = get("/frame")
+                rt.append((time.perf_counter() - t0) * 1e3)
+                require(kind == "image/png" and body[:8] == b"\x89PNG\r\n\x1a\n", "serve png")
+            stats = json.loads(get("/stats")[1])
+            require(set(stats) == {"fps", "frame_time", "gpu_memory", "pair_overflow",
+                                   "contact_overflow"}, ("serve stats", stats))
+            phase("frontend", name="serve", card=smi, size=SERVE_SIZE, frames=SERVE_FRAMES,
+                  frame_round_trip_ms="/".join(f"{x:.1f}" for x in rt),
+                  median_ms=f"{statistics.median(rt):.2f}", stats=stats)
+            res["serve_ms"] = rt
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1905,6 +2279,22 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
                     {"ms": "/".join(f"{x:.3f}" for x in rig_ms),
                      "device_ms": frame_prof["device_busy_ms"],
                      "launches": frame_prof["launch_calls"]})
+
+    # 9. the empty draw classes on every route, the oracle renderer and
+    # the front ends
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    empty_s = empty_class_phase(dev)
+    t9a = time.perf_counter()
+    oracle = oracle_phase(dev, smi, W, H)
+    t9c = time.perf_counter()
+    torch.cuda.empty_cache()
+    fronts = frontend_phase(dev, smi)
+    t9d = time.perf_counter()
+    phase("phase9", card=smi, empty_class_s=f"{t9a - t9:.1f}", oracle_s=f"{t9c - t9a:.1f}",
+          frontends_s=f"{t9d - t9c:.1f}", oracle_ms_per_frame=oracle["ms"],
+          demo_fps=fronts["demo_fps"], crowd_char_frames_per_s=fronts["crowd_char_frames_per_s"],
+          slowest_empty_route=max(empty_s, key=empty_s.get))
 
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [

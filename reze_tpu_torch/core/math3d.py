@@ -3,7 +3,6 @@
 Same conventions: left-handed, +Z forward, +Y up; quaternions ``[x, y, z,
 w]`` with Hamilton products; MMD ZXY Euler order; matrices ``(..., 4, 4)``
 acting on column vectors. Every function broadcasts over leading axes.
-Only the functions the step, camera and frame pipeline use are here.
 """
 
 from __future__ import annotations
@@ -52,6 +51,13 @@ def morph_sum(weights: Tensor, table: Tensor) -> Tensor:
 def ease_in_out(t: Tensor) -> Tensor:
     """Quadratic ease-in-out."""
     return torch.where(t < 0.5, 2.0 * t * t, 1.0 - torch.square(-2.0 * t + 2.0) / 2.0)
+
+
+def quat_identity(shape=(), device="cuda") -> Tensor:
+    """Identity quaternions of ``shape`` -> (*shape, 4)."""
+    q = torch.zeros(tuple(shape) + (4,), device=device)
+    q[..., 3] = 1.0
+    return q
 
 
 def quat_mul(a: Tensor, b: Tensor) -> Tensor:
@@ -145,6 +151,24 @@ def quat_to_euler_zxy(q: Tensor) -> Tensor:
     return torch.stack([rot_x, rot_y, rot_z], dim=-1)
 
 
+def quat_from_to(v_from: Tensor, v_to: Tensor) -> Tensor:
+    """The quaternion that turns unit vector ``v_from`` onto ``v_to``; the
+    identity where they agree, a half turn about an axis orthogonal to
+    ``v_from`` where they are opposite."""
+    d = torch.sum(v_from * v_to, dim=-1, keepdim=True)
+    w = torch.sqrt(torch.clamp((1.0 + d) * 2.0, min=1e-12))
+    general = torch.cat([torch.linalg.cross(v_from, v_to) / w, 0.5 * w], dim=-1)
+    alt1 = torch.linalg.cross(v_from, const((1.0, 0.0, 0.0), v_from.dtype, v_from.device)
+                              .expand(v_from.shape))
+    alt2 = torch.linalg.cross(v_from, const((0.0, 1.0, 0.0), v_from.dtype, v_from.device)
+                              .expand(v_from.shape))
+    alt = torch.where(torch.linalg.norm(alt1, dim=-1, keepdim=True) < 1e-3, alt2, alt1)
+    flip = torch.cat([alt, torch.zeros_like(d)], dim=-1)
+    ident = const((0.0, 0.0, 0.0, 1.0), general.dtype, general.device).expand(general.shape)
+    out = torch.where(d > 0.999999, ident, torch.where(d < -0.999999, flip, general))
+    return quat_normalize(out)
+
+
 def mat3_from_quat(q: Tensor) -> Tensor:
     x, y, z, w = q.unbind(-1)
     x2, y2, z2 = x + x, y + y, z + z
@@ -164,6 +188,60 @@ def mat4_from_rot_pos(rot3: Tensor, pos: Tensor) -> Tensor:
     top = torch.cat([rot3, pos[..., :, None]], dim=-1)
     bottom = const((0.0, 0.0, 0.0, 1.0), rot3.dtype, rot3.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def mat4_from_quat(q: Tensor) -> Tensor:
+    return mat4_from_rot_pos(mat3_from_quat(q), torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype,
+                                                            device=q.device))
+
+
+def mat4_from_pos_quat(pos: Tensor, q: Tensor) -> Tensor:
+    return mat4_from_rot_pos(mat3_from_quat(q), pos)
+
+
+def mat4_translation(t: Tensor) -> Tensor:
+    return mat4_from_rot_pos(torch.eye(3, dtype=t.dtype, device=t.device), t)
+
+
+def mat4_to_quat(m: Tensor) -> Tensor:
+    """Rotation block of (..., 4, 4) -> unit quaternion, without branches:
+    the candidate of the largest diagonal term is kept."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    trace = m00 + m11 + m22
+
+    def scale(s_sq):
+        return torch.sqrt(torch.clamp(s_sq, min=1e-12)) * 2.0
+
+    s = scale(trace + 1.0)
+    c0 = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s], dim=-1)
+    s = scale(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([0.25 * s, (m01 + m10) / s, (m02 + m20) / s, (m21 - m12) / s], dim=-1)
+    s = scale(1.0 + m11 - m00 - m22)
+    c2 = torch.stack([(m01 + m10) / s, 0.25 * s, (m12 + m21) / s, (m02 - m20) / s], dim=-1)
+    s = scale(1.0 + m22 - m00 - m11)
+    c3 = torch.stack([(m02 + m20) / s, (m12 + m21) / s, 0.25 * s, (m10 - m01) / s], dim=-1)
+    use0 = (trace > 0.0)[..., None]
+    use1 = ((m00 > m11) & (m00 > m22))[..., None]
+    use2 = (m11 > m22)[..., None]
+    q = torch.where(use0, c0, torch.where(use1, c1, torch.where(use2, c2, c3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def mat4_inverse_rigid(m: Tensor) -> Tensor:
+    """Inverse of a rotation + translation: transpose the rotation, rotate
+    the translation back."""
+    rt = m[..., :3, :3].transpose(-1, -2)
+    return mat4_from_rot_pos(rt, -torch.einsum("...ij,...j->...i", rt, m[..., :3, 3]))
+
+
+def transform_point(m: Tensor, p: Tensor) -> Tensor:
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def transform_dir(m: Tensor, v: Tensor) -> Tensor:
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], v)
 
 
 def mat4_inverse(m: Tensor) -> Tensor:

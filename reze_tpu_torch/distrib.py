@@ -14,7 +14,9 @@ crowd whose state has a leading character axis on every tensor
   another, like the reference's ``lax.map`` over chunks;
 * every other fast route ("mxu", "hybrid", the per-pass renderer): the
   single-character step over the characters in turn, the reference's own
-  sequential ``lax.map``.
+  sequential ``lax.map``;
+* ``renderer="xla"``: the single-character oracle step over the
+  characters in turn (the reference maps it over the crowd).
 
 The multi-device half of the reference (``make_mesh``, ``shard_batch``,
 ``replicate``, ``shard_map``) is not ported: the port runs on one card.
@@ -72,7 +74,8 @@ def make_batched_step(model: ModelArrays, cfg: EngineConfig, per_character_clips
     batched launch (the crowd size must be a multiple of it)."""
     _check_config(model, cfg)
     single = make_step(model, cfg)
-    batched = _uses_megakernel(cfg) and cfg.rasterizer in ("group", "stream")
+    batched = (cfg.renderer != "xla" and _uses_megakernel(cfg)
+               and cfg.rasterizer in ("group", "stream"))
 
     def at(tree, c):
         return _map(lambda x: x[c], tree)

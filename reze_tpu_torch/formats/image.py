@@ -1,5 +1,6 @@
-"""Texture decoding with zlib and numpy (counterpart of
-``reze_tpu/core/build.py::_load_image``, which decodes with PIL).
+"""Image decoding and encoding with zlib and numpy (the decoders are the
+counterpart of ``reze_tpu/core/build.py::_load_image``, which decodes
+with PIL).
 
 The formats MMD models ship with decode here, each to the (h, w, 4) uint8
 RGBA array that PIL's ``Image.open(path).convert("RGBA")`` gives:
@@ -18,6 +19,10 @@ does. A file in another format, or one these decoders reject, goes to PIL
 when PIL can be imported (None where PIL fails too, as in the JAX
 package); without PIL it warns once, naming the file, and loads as
 missing.
+
+The encoders write what the front ends save: 8-bit PNG
+(:func:`encode_png`, :func:`write_png`) and animated GIF with a fixed
+6x7x6 colour cube and LZW (:func:`encode_gif`, :func:`write_gif`).
 """
 
 from __future__ import annotations
@@ -276,3 +281,145 @@ def decode_tga(data: bytes) -> np.ndarray:
     out[..., :3] = px[..., 2::-1]
     out[..., 3] = px[..., 3] if bpp == 4 else 255
     return out
+
+
+# ---------------------------------------------------------------------------
+# Encoders
+# ---------------------------------------------------------------------------
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray, filters=None, palette=None, transparency=None) -> bytes:
+    """An 8-bit PNG of ``img``: (h, w) grey, (h, w, 2) grey and alpha, (h,
+    w, 3) RGB or (h, w, 4) RGBA; with ``palette`` ((n, 3) uint8), (h, w)
+    palette indices. ``filters``: the row filter of each row (0-4),
+    cycled; every filter in turn by default. ``transparency``: the bytes
+    of a ``tRNS`` chunk."""
+    img = np.asarray(img, np.uint8)
+    if palette is not None:
+        ctype, px = 3, img[..., None]
+    else:
+        px = img if img.ndim == 3 else img[..., None]
+        ctype = {1: 0, 2: 4, 3: 2, 4: 6}[px.shape[2]]
+    h, w, bpp = px.shape
+    cur = px.reshape(h, w * bpp).astype(np.int64)
+    prev = np.vstack([np.zeros((1, w * bpp), np.int64), cur[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int64), cur[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int64), prev[:, :-bpp]])
+    p = left + prev - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+    preds = [np.zeros_like(cur), left, prev, (left + prev) >> 1, paeth]
+    filters = list(filters) if filters is not None else [0, 1, 2, 3, 4]
+    raw = bytearray()
+    for y in range(h):
+        ft = filters[y % len(filters)]
+        raw.append(ft)
+        raw += ((cur[y] - preds[ft][y]) & 255).astype(np.uint8).tobytes()
+    body = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+    if palette is not None:
+        body.append(_png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    if transparency is not None:
+        body.append(_png_chunk(b"tRNS", bytes(transparency)))
+    body.append(_png_chunk(b"IDAT", zlib.compress(bytes(raw))))
+    body.append(_png_chunk(b"IEND", b""))
+    return _PNG_MAGIC + b"".join(body)
+
+
+def write_png(path: str, img: np.ndarray, **kw) -> None:
+    """:func:`encode_png` of ``img`` into the file ``path``."""
+    data = encode_png(img, **kw)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+# the GIF palette: a 6x7x6 cube of red, green and blue levels (252 colours)
+GIF_LEVELS = (6, 7, 6)
+
+
+def gif_palette() -> np.ndarray:
+    """(256, 3) uint8: the colour cube, index r * 42 + g * 6 + b, then black."""
+    r, g, b = np.meshgrid(*(np.arange(n) * 255.0 / (n - 1) for n in GIF_LEVELS),
+                          indexing="ij")
+    cube = np.stack([r, g, b], -1).reshape(-1, 3).round().astype(np.uint8)
+    return np.concatenate([cube, np.zeros((256 - cube.shape[0], 3), np.uint8)])
+
+
+def gif_indices(img: np.ndarray) -> np.ndarray:
+    """(h, w, 3) uint8 rgb -> (h, w) uint8 index of the nearest level of
+    each channel in :func:`gif_palette`."""
+    q = [np.rint(img[..., c].astype(np.float32) * ((n - 1) / 255.0)).astype(np.int64)
+         for c, n in enumerate(GIF_LEVELS)]
+    return (q[0] * (GIF_LEVELS[1] * GIF_LEVELS[2]) + q[1] * GIF_LEVELS[2] + q[2]).astype(
+        np.uint8)
+
+
+def _lzw(indices: bytes) -> bytes:
+    """GIF LZW of 8-bit indices (minimum code size 8, codes up to 12 bits,
+    a clear code when the table is full) -> the packed code stream."""
+    clear, eoi = 256, 257
+    codes, sizes = [clear], [9]
+    table, next_code, size = {}, eoi + 1, 9
+    w = indices[0]
+    for k in indices[1:]:
+        key = (w << 8) | k
+        hit = table.get(key)
+        if hit is not None:
+            w = hit
+            continue
+        if next_code > (1 << size):  # the decoder has grown past this width
+            size += 1
+        codes.append(w)
+        sizes.append(size)
+        if next_code < 4096:
+            table[key] = next_code
+            next_code += 1
+        else:
+            codes.append(clear)
+            sizes.append(size)
+            table, next_code, size = {}, eoi + 1, 9
+        w = k
+    if next_code > (1 << size):
+        size += 1
+    codes += [w, eoi]
+    sizes += [size, size]
+    # codes are packed least significant bit first
+    codes, sizes = np.asarray(codes, np.int64), np.asarray(sizes, np.int64)
+    owner = np.repeat(np.arange(codes.size), sizes)
+    bit = np.arange(owner.size) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+    bits = ((codes[owner] >> bit) & 1).astype(np.uint8)
+    return np.packbits(bits, bitorder="little").tobytes()
+
+
+def encode_gif(frames, duration_ms: int = 33, loop: int = 0) -> bytes:
+    """An animated GIF of ``frames`` ((h, w, 3) uint8 each, one size) with
+    the fixed palette of :func:`gif_palette`, each frame shown
+    ``duration_ms`` (rounded to hundredths of a second), repeated ``loop``
+    times (0: for ever)."""
+    frames = [np.asarray(f, np.uint8) for f in frames]
+    if not frames or any(f.shape != frames[0].shape or f.ndim != 3 or f.shape[2] != 3
+                         for f in frames):
+        raise ValueError("encode_gif: need frames of one (h, w, 3) shape")
+    h, w = frames[0].shape[:2]
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"]
+    delay = int(round(duration_ms / 10.0))
+    for f in frames:
+        data = _lzw(gif_indices(f).tobytes())
+        blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                          for i in range(0, len(data), 255))
+        out += [b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00",
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0), b"\x08", blocks, b"\x00"]
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def write_gif(path: str, frames, **kw) -> None:
+    """:func:`encode_gif` of ``frames`` into the file ``path``."""
+    data = encode_gif(frames, **kw)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -133,6 +133,9 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
         attr = torch.zeros(lead + (t, 18), device=dev)
     tab = torch.cat([torch.stack(cols, dim=-1), attr,
                      torch.zeros(lead + (t, ROW_W - ROW_USED), device=dev)], dim=-1)
+    if t == 0:  # an empty draw class: no rows and no pairs
+        zero = torch.zeros(lead + (cap,), dtype=torch.int64, device=dev)
+        return tab, zero, zero != 0, zero, torch.zeros(lead, dtype=torch.int64, device=dev)
 
     # exact pair enumeration over each triangle's tile bounding box
     def tile_of(v, size, n):

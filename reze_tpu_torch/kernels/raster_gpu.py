@@ -102,6 +102,14 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     tab = torch.cat([ea, eb, ec, torch.stack([za, zb, zc, ymin, ymax, xmin, xmax], dim=1),
                      *attr, tri_mat[:, None].to(torch.float32),
                      torch.zeros((t, ROW_W - C_MAT - 1), device=dev)], dim=1)
+    if cap is None:
+        cap = pair_capacity(t)
+    b_total = by * bx
+    if t == 0:  # an empty draw class: no rows and no pairs
+        zero = torch.zeros(b_total, dtype=torch.int32, device=dev)
+        return PassTables(tab=tab, ids=torch.zeros(cap, dtype=torch.int32, device=dev),
+                          starts=zero, counts=zero.clone(),
+                          overflow=torch.zeros((), dtype=torch.int64, device=dev))
 
     # exact pair enumeration over each triangle's tile bounding box
     def tile_of(v, size, n):
@@ -117,8 +125,6 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     ends_tri = torch.cumsum(n_bins_tri, 0)
     starts_tri = ends_tri - n_bins_tri
     total = ends_tri[-1]
-    if cap is None:
-        cap = pair_capacity(t)
     k = torch.arange(cap, device=dev)
     tri_of_k = torch.clamp(torch.searchsorted(ends_tri, k, right=True), max=t - 1)
     slot = k - starts_tri[tri_of_k]
@@ -126,7 +132,6 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     sy = torch.div(slot, nx_k, rounding_mode="floor")
     bin_id = (by0[tri_of_k] + sy) * bx + (bx0[tri_of_k] + (slot - sy * nx_k))
 
-    b_total = by * bx
     key = torch.where(k < total, bin_id * _KEY_SHIFT + tri_of_k, b_total * _KEY_SHIFT)
     key, _ = torch.sort(key)
     pair_bin = torch.div(key, _KEY_SHIFT, rounding_mode="floor")

@@ -30,6 +30,13 @@ def blend_palette_gather(skin: Skinning, palette: Tensor) -> Tensor:
     return torch.sum(skin.weights[:, :, None, None] * mats, dim=-3)
 
 
+def blend_palette_dense(skin: Skinning, palette: Tensor) -> Tensor:
+    """Per-vertex blended 3x4 skin matrices (..., V, 3, 4) as one dense
+    product of the (V, J) weights with the flattened palette (..., J, 12)."""
+    flat = palette.reshape(palette.shape[:-2] + (12,))
+    return torch.matmul(skin.weights_dense, flat).reshape(flat.shape[:-2] + (-1, 3, 4))
+
+
 def _linear(m: Tensor, v: Tensor) -> Tensor:
     """(..., V, 3, k >= 3) matrices' first three columns on (..., V, 3),
     summed (x + y) + z."""

@@ -6,6 +6,12 @@ far: per-pixel material parameters come from one packed (M, C) table,
 toon ramps are 8-segment piecewise-linear fits of the 256-entry LUT, the
 world position is rebuilt from depth and the inverse view-projection, and
 albedo is one nearest-texel fetch of mip level 0.
+
+The layer-stack helpers (:class:`LayerStack`, :func:`empty_stack`,
+:func:`push_layer`, :func:`composite_stack`) push every pass's fragments
+onto a two-deep per-pixel stack and shade each layer once; the engine's
+paths use the planar stack of ``pipeline_gpu`` and the stack-shade kernel
+instead, and these stay as public helpers.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 
 from ..core.types import Lights, Materials, TextureAtlas
 from ..kernels import raster_gpu as RG
+from .shading import blend_into as blend  # noqa: F401  (the per-pass blend)
 
 Tensor = torch.Tensor
 
@@ -144,8 +151,70 @@ def shade_outline_fast(gbuf: Tensor, packed: PackedMaterials
     return edge[:, :3], edge[:, 3], gbuf[RG.CH_COVER], mat_f >= 0.0
 
 
-def blend(color: Tensor, rgb: Tensor, alpha: Tensor, cover: Tensor, mask: Tensor) -> Tensor:
-    mask = mask & (alpha >= 0.001)
-    a = (alpha * cover)[:, None]
-    out = rgb * a + color * (1.0 - a)
-    return torch.where(mask[:, None], out, color)
+
+# ---------------------------------------------------------------------------
+# Layered deferred shading: every pass pushes its fragments onto a 2-deep
+# per-pixel layer stack, then each layer is shaded once. Exact wherever at
+# most two fragments survive opacity culling at a pixel (an opaque fragment
+# empties the stack beneath it).
+# ---------------------------------------------------------------------------
+
+
+class LayerStack(NamedTuple):
+    gbuf: tuple  # 2 x (N_CH, P)
+    a_eff: tuple  # 2 x (P,) blend alpha (material alpha x cover x stencil)
+    outline: tuple  # 2 x (P,) bool: a flat edge-colour fragment
+    present: tuple  # 2 x (P,) bool
+
+
+def empty_stack(p: int, device="cuda") -> LayerStack:
+    z = torch.zeros((RG.N_CH, p), device=device)
+    zp = torch.zeros(p, device=device)
+    f = torch.zeros(p, dtype=torch.bool, device=device)
+    return LayerStack((z, z), (zp, zp), (f, f), (f, f))
+
+
+def push_layer(stack: LayerStack, gbuf: Tensor, packed: PackedMaterials, outline: bool,
+               stencil: Tensor | None = None, stencil_eye_value: int = 1) -> LayerStack:
+    """Push one pass's G-buffer (N_CH, P) in draw order: an opaque fragment
+    clears the stack beneath it, a translucent one moves layer 1 down to
+    layer 0; fragments under an alpha of 0.001 are dropped. With
+    ``stencil``, hair alpha halves where it holds the eye value."""
+    mat_f = gbuf[RG.CH_MAT]
+    params = fetch_params(torch.clamp(mat_f, min=0.0), packed)
+    alpha = params[:, 8] if outline else params[:, 0]
+    if stencil is not None and not outline:
+        alpha = alpha * torch.where((stencil == stencil_eye_value) & (params[:, 10] > 0.5),
+                                    0.5, 1.0)
+    a_eff = alpha * gbuf[RG.CH_COVER]
+    present = (mat_f >= 0.0) & (a_eff >= 0.001)
+    opaque = present & (a_eff > 0.999)
+    translucent = present & ~opaque
+    (l0g, l1g), (l0a, l1a), (l0o, l1o), (l0p, l1p) = (stack.gbuf, stack.a_eff,
+                                                      stack.outline, stack.present)
+    down = translucent & l1p
+    new_l0g = torch.where(opaque, 0.0, torch.where(down, l1g, l0g))
+    new_l0a = torch.where(opaque, 0.0, torch.where(down, l1a, l0a))
+    new_l0o = torch.where(opaque, False, torch.where(down, l1o, l0o))
+    new_l0p = torch.where(opaque, False, torch.where(translucent, l1p, l0p))
+    new_l1g = torch.where(present, gbuf, l1g)
+    new_l1a = torch.where(present, a_eff, l1a)
+    new_l1o = torch.where(present, bool(outline), l1o)
+    return LayerStack((new_l0g, new_l1g), (new_l0a, new_l1a), (new_l0o, new_l1o),
+                      (new_l0p, present | l1p))
+
+
+def composite_stack(stack: LayerStack, packed: PackedMaterials, atlas_stride: int,
+                    lights: Lights, eye_pos: Tensor, inv_view_proj: Tensor, wp: int, hp: int,
+                    rim_intensity: float) -> Tensor:
+    """Shade both layers once and blend them bottom-up -> (P, 3)."""
+    out = torch.zeros((wp * hp, 3), device=eye_pos.device)
+    for g, a_eff, outline, present in zip(stack.gbuf, stack.a_eff, stack.outline,
+                                          stack.present):
+        toon_rgb = shade_material_fast(g, packed, atlas_stride, lights, eye_pos, inv_view_proj,
+                                       wp, hp, rim_intensity)[0]
+        edge_rgb = fetch_params(torch.clamp(g[RG.CH_MAT], min=0.0), packed)[:, 5:8]
+        rgb = torch.where(outline[:, None], edge_rgb, toon_rgb)
+        a = torch.where(present, a_eff, 0.0)[:, None]
+        out = rgb * a + out * (1.0 - a)
+    return out

@@ -62,6 +62,12 @@ def world_transforms(skel: Skeleton, local_rot: Tensor, local_trans: Tensor
     return compose_world(skel, rot, pos)
 
 
+def world_matrices(skel: Skeleton, local_rot: Tensor, local_trans: Tensor) -> Tensor:
+    """Full pose -> world matrices (..., J, 4, 4)."""
+    q, p = world_transforms(skel, local_rot, local_trans)
+    return m3.mat4_from_pos_quat(p, q)
+
+
 def skin_palette(skel: Skeleton, world_quat: Tensor, world_pos: Tensor) -> Tensor:
     """Per-bone skin matrices (..., J, 3, 4): world * T(inverse bind)."""
     rot3 = m3.mat3_from_quat(world_quat)

@@ -16,8 +16,10 @@ through the per-pass renderer ``pipeline_gpu.render_frame_fast`` (the
 raster-pass kernel, then the stack-shade kernel and the same composite, or
 plain per-pass shading), which never reads ``cfg.rasterizer``.
 
-Not ported yet, and refused rather than skipped (ROADMAP queue 1): the
-XLA-oracle renderer.
+``renderer="xla"`` renders through the oracle instead,
+``pipeline.render_frame`` at ``pipeline.make_dims(cfg)`` in plain torch,
+which counts no pair overflow. ``"auto"`` and ``"tpu"`` take the fast
+renderers on every device: the port never falls back to the oracle.
 """
 
 from __future__ import annotations
@@ -32,16 +34,16 @@ from .core.types import DiagState, EngineConfig, ModelArrays, SceneState
 from .kernels import shade_gpu as SG
 from .kernels.skinning import skin_vertices
 from .physics import solver as physics_solver
-from .render import pipeline_gpu
+from .render import pipeline, pipeline_gpu
 from .render import shading_fast as SF
 from .skeleton import fk
 from .skeleton import ik as ik_mod
 
 
 def _check_config(model: ModelArrays, cfg: EngineConfig) -> None:
-    if cfg.renderer not in ("auto", "tpu"):
-        raise NotImplementedError(
-            f"EngineConfig renderer={cfg.renderer!r} is not ported yet (ROADMAP queue 1)")
+    if cfg.renderer not in ("auto", "tpu", "xla"):
+        raise ValueError(f"EngineConfig renderer={cfg.renderer!r}: need 'auto', 'tpu' or "
+                         "'xla'")
 
 
 def _uses_megakernel(cfg: EngineConfig) -> bool:
@@ -53,11 +55,13 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     """-> step(state, dt, view_proj, eye_pos, lights, track, breath)
     -> (state', frame (H, W, 3)). All tensors on the model's device."""
     _check_config(model, cfg)
-    dims = pipeline_gpu.make_dims_fast(cfg)
-    shade_tables = SG.pack_shade_tables(model.materials, model.atlas)
+    oracle = cfg.renderer == "xla"
+    dims = pipeline.make_dims(cfg) if oracle else pipeline_gpu.make_dims_fast(cfg)
+    shade_tables = None if oracle else SG.pack_shade_tables(model.materials, model.atlas)
     mega = _uses_megakernel(cfg)
     # material table of the non-layered per-pass shading
-    packed = None if cfg.layered_shading else SF.pack_materials(model.materials, model.atlas)
+    packed = (None if oracle or cfg.layered_shading
+              else SF.pack_materials(model.materials, model.atlas))
     # the solver's static tables, read from the model once, here
     phys = (physics_solver.prepare(cfg, model.physics)
             if cfg.enable_physics and model.physics.n_bodies > 0 else None)
@@ -135,7 +139,11 @@ def make_step(model: ModelArrays, cfg: EngineConfig):
     def step(state: SceneState, dt, view_proj, eye_pos, lights, track, breath):
         (t, rot, trans, mw, tween_state, phys_state, contact_overflow, pos, nrm, uvs,
          mat_mod) = simulate(state, dt, track, breath)
-        if mega:
+        if oracle:
+            frame = pipeline.render_frame(model, cfg, dims, pos, nrm, view_proj, eye_pos,
+                                          lights, uvs=uvs, mat_mod=mat_mod)
+            pair_overflow = torch.zeros_like(state.diag.pair_overflow)
+        elif mega:
             frame, pair_overflow = pipeline_gpu.render_frame_mega(
                 model, cfg, dims, pos, nrm, view_proj, eye_pos, lights, uvs=uvs,
                 mat_mod=mat_mod, shade_tables=shade_tables)

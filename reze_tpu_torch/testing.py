@@ -21,10 +21,10 @@ one into a directory.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import struct
-import zlib
 
 import numpy as np
 
@@ -55,6 +55,7 @@ from .formats.pmx import (
     PMXMorph,
     PMXRigidBody,
 )
+from .formats.image import write_png  # noqa: F401  (one of this module's writers)
 from .formats.vmd import VMDMotion
 
 
@@ -1020,50 +1021,6 @@ def write_vmd(path: str, motion: VMDMotion) -> None:
         f.write(o.data())
 
 
-def _png_chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body)))
-
-
-def write_png(path: str, img: np.ndarray, filters=None, palette=None,
-              transparency=None) -> None:
-    """Write an 8-bit PNG: ``img`` (h, w) grey, (h, w, 2) grey and alpha,
-    (h, w, 3) RGB or (h, w, 4) RGBA; with ``palette`` ((n, 3) uint8), (h,
-    w) palette indices. ``filters``: the row filter of each row (0-4),
-    cycled; every filter in turn by default. ``transparency``: the bytes
-    of a ``tRNS`` chunk."""
-    img = np.asarray(img, np.uint8)
-    if palette is not None:
-        ctype, px = 3, img[..., None]
-    else:
-        px = img if img.ndim == 3 else img[..., None]
-        ctype = {1: 0, 2: 4, 3: 2, 4: 6}[px.shape[2]]
-    h, w, bpp = px.shape
-    cur = px.reshape(h, w * bpp).astype(np.int64)
-    prev = np.vstack([np.zeros((1, w * bpp), np.int64), cur[:-1]])
-    left = np.hstack([np.zeros((h, bpp), np.int64), cur[:, :-bpp]])
-    upleft = np.hstack([np.zeros((h, bpp), np.int64), prev[:, :-bpp]])
-    p = left + prev - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
-    preds = [np.zeros_like(cur), left, prev, (left + prev) >> 1, paeth]
-    filters = list(filters) if filters is not None else [0, 1, 2, 3, 4]
-    raw = bytearray()
-    for y in range(h):
-        ft = filters[y % len(filters)]
-        raw.append(ft)
-        raw += ((cur[y] - preds[ft][y]) & 255).astype(np.uint8).tobytes()
-    body = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
-    if palette is not None:
-        body.append(_png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
-    if transparency is not None:
-        body.append(_png_chunk(b"tRNS", bytes(transparency)))
-    body.append(_png_chunk(b"IDAT", zlib.compress(bytes(raw))))
-    body.append(_png_chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + b"".join(body))
-
-
 def write_bmp(path: str, img: np.ndarray, palette=None, top_down: bool = False,
               bitfields: bool = False) -> None:
     """Write an uncompressed BMP: (h, w, 3) as 24-bit, (h, w, 4) as 32-bit
@@ -1732,6 +1689,60 @@ def _motion(rng, model: PMXModel, at: dict, flagship: bool) -> VMDMotion:
                                   rng.uniform(-0.5, 0.5, 3)], 1).astype(np.float32),
         camera_rotation=(rng.uniform(-1, 1, (3, 3)) * (0.1, 0.4, 0.05)).astype(np.float32),
         camera_fov=rng.integers(40, 50, 3).astype(np.float32))
+
+
+def empty_class_spec(spec: PMXSpec, kind: str, behind=None) -> PMXSpec:
+    """``spec`` with a draw class emptied: ``kind="hair"`` renames every
+    hair material so that it draws in the opaque class (the hair and hair
+    outline passes hold no triangle); ``kind="outline"`` clears the edge
+    flag of every transparent material (the transparent outline pass holds
+    none). With ``behind``, a (3,) world point behind every camera that
+    will look at it, the same scene with one more material of the emptied
+    class (a copy of its first material, edge flag kept) drawing one small
+    triangle at that point, bound to bone 0: a witness that renders like
+    the emptied scene and keeps the class non-empty."""
+    if kind not in ("hair", "outline"):
+        raise ValueError(f"kind {kind!r}")
+    out = copy.deepcopy(spec)
+    model = out.model
+    if kind == "hair":
+        emptied = [m for m in model.materials if m.is_hair]
+        for m in emptied:
+            m.name = m.name.replace("hair_f", "cap")
+    else:
+        emptied = [m for m in model.materials if float(m.diffuse[3]) < 1.0 and m.has_edge]
+        for m in emptied:
+            m.flags &= ~MAT_FLAG_EDGE
+    if not emptied:
+        raise ValueError(f"the model has no {kind} material to empty")
+    if behind is None:
+        return out
+    src = next(m for m in spec.model.materials if m.is_hair) if kind == "hair" else next(
+        m for m in spec.model.materials if float(m.diffuse[3]) < 1.0 and m.has_edge)
+    mat = copy.deepcopy(src)
+    mat.name, mat.index_count = src.name + "_witness", 3
+    v = model.positions.shape[0]
+    corners = np.asarray(behind, np.float32) + np.array(
+        [[0.0, 0.0, 0.0], [0.1, 0.0, 0.0], [0.0, 0.1, 0.0]], np.float32)
+
+    def grow(a, row):
+        return None if a is None else np.concatenate(
+            [a, np.broadcast_to(np.asarray(row, a.dtype), (3,) + a.shape[1:])])
+
+    model.positions = np.concatenate([model.positions, corners])
+    model.normals = grow(model.normals, (0.0, 0.0, -1.0))
+    model.uvs = grow(model.uvs, (0.5, 0.5))
+    model.additional_uvs = grow(model.additional_uvs, 0.0)
+    model.deform_types = grow(model.deform_types, DEFORM_BDEF1)
+    model.joints4 = grow(model.joints4, (0, 0, 0, 0))
+    model.weights4 = grow(model.weights4, (1.0, 0.0, 0.0, 0.0))
+    model.sdef_c, model.sdef_r0, model.sdef_r1 = (
+        grow(a, 0.0) for a in (model.sdef_c, model.sdef_r0, model.sdef_r1))
+    model.edge_scale = grow(model.edge_scale, 1.0)
+    model.indices = np.concatenate([model.indices,
+                                    np.arange(v, v + 3, dtype=model.indices.dtype)])
+    model.materials.append(mat)
+    return out
 
 
 def write_scene(directory: str, spec: PMXSpec) -> tuple[str, str]:

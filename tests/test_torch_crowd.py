@@ -497,11 +497,13 @@ def test_per_character_clips_and_other_routes():
             assert torch.equal(frames[c], f1), (rast, c)
 
 
-@pytest.mark.parametrize("change", [{"renderer": "xla"}])
+@pytest.mark.parametrize("change", [{"renderer": "vulkan"}])
 def test_crowd_refusals(change):
+    """A renderer the engine does not have is refused (``renderer="xla"``
+    steps the characters in turn: ``test_torch_xla_render.py``)."""
     model = ptesting.make_test_model(device="cpu")
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="renderer"):
         distrib.make_batched_step(model, cfg)
 
 

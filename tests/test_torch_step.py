@@ -227,10 +227,12 @@ def _still_args(model):
             breath)
 
 
-@pytest.mark.parametrize("change", [{"renderer": "xla"}])
+@pytest.mark.parametrize("change", [{"renderer": "vulkan"}])
 def test_unported_paths_refused(change):
+    """A renderer the engine does not have is refused (``renderer="xla"``,
+    once refused here, runs the oracle: ``test_torch_xla_render.py``)."""
     cfg = PT.EngineConfig(width=W, height=H, enable_physics=False, **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="renderer"):
         pmake_step(ptesting.make_test_model(device="cpu"), cfg)
 
 
