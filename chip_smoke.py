@@ -78,7 +78,14 @@ Phases, each printed on its own line:
    against their twins on the model's own 1080p tables; then the same
    model at ENGINE_SMALL through the Engine on the card and on the CPU,
    each frame's share of pixels past 1/255 within RIG_SPREAD of the CPU's
-   own one-ulp witnesses' or within 1 % (``engine_small_check``), a crowd
+   own one-ulp witnesses' or within 1 % (``engine_small_check``), the
+   card's render of the CPU's own pose past 1/255 on at most
+   RENDER_ONLY_TOL of pixels, and for the first frame that render walked
+   stage by stage on both devices (``divergence_walk``: the inverse
+   view-projection, the shade tables, each pass's projected corners,
+   triangle setup and pair pack, the packed tables, the frame kernel on
+   the CPU's tables and on the card's, the composite, the frame; each
+   tensor's largest difference and count of differing elements), a crowd
    of ENGINE_CROWD of it
    through ``distrib.make_batched_step`` ("group", one frame- and one
    composite-crowd launch a frame, each character within CROWD_TOL of its
@@ -129,7 +136,21 @@ Phases, each printed on its own line:
    frames at 512x512 with the drag, its FPS, PNGs and GIF), the crowd (32
    characters at 256x256 in one chunk, its char-frames/s and montage) and
    serve at 480x360 (every route answered, the /frame round trip in ms),
-   each stopped; the phase's seconds.
+   each stopped; the phase's seconds;
+10. (10a) the crowd over a mesh (``distrib.make_mesh``): MESH_C characters
+   of the written flagship-width model at MESH_SIZE x MESH_SIZE, physics
+   on, phase 9d's staggered starts, MESH_FRAMES crowd steps on the "group"
+   and "stream" routes, unsharded, over ``make_mesh()`` (every card) and
+   over two and four shards of the one card (``make_mesh(devices=[dev] *
+   n)``), and over two cards where there are two: states and frames equal
+   bit for bit to the unsharded crowd's, each shard's batched kernels
+   launched once a crowd step, char-frames/s and launches per crowd frame
+   of each, two turns; (10b) the tutorial ladder: ``python -m
+   reze_tpu_torch.examples.tutorial --stage 0..4`` and ``python -m
+   reze_tpu_torch.examples.tutorial.v0..v4`` as processes on the written
+   flagship-width model, all started together (seconds, covered share, the
+   PNG decoded back), then each rung and stage on the card against the CPU
+   on the written small model, within 1/255 on >= LADDER_FRAC of pixels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -200,6 +221,7 @@ ENGINE_CROWD_SIZE = 256
 ENGINE_CROWD_FRAMES = 2
 ENGINE_STAGGER = 0.4
 ENGINE_TIMED = 8
+RENDER_ONLY_TOL = 0.001  # share of pixels past 1/255: card render of the CPU's pose
 ENGINE_BREATH = {"上半身": 0.05, "首": 0.02}
 W, H = 1920, 1080
 # phase 9a: the empty-class variants of testing.make_pmx_spec(EMPTY_SEED,
@@ -240,6 +262,11 @@ FRONTEND_TIMEOUT = 300
 # bench.py's parity_fps config: bilinear albedo from the quad table, level
 # 0, both layers at full res; its frame within PARITY_TOL of the 4-tap
 # composite's (tests/test_render_pipeline.py's quad-against-4-gather bound)
+MESH_C = 32  # phase 10a: the crowd over a mesh
+MESH_SIZE = 256
+MESH_FRAMES = 3
+LADDER_FRAC = 0.99  # phase 10b: each rung's card image against the CPU's
+
 PARITY = dict(albedo_bilinear=True, albedo_mips=False, albedo_half_visible=False,
               albedo_half_occluded=False)
 PARITY_TOL = 1e-5
@@ -990,6 +1017,102 @@ def engine_phase(dev, smi: str, counters: dict, W: int, H: int) -> dict:
             "render_ms": render_ms, "step_ms": step_ms}
 
 
+def divergence_walk(dev, model_c, model_g, cfg, sim_c, vp, eye, lights) -> list:
+    """``pipeline_gpu.render_frame_mega`` stage by stage on the CPU and on
+    ``dev`` from the same inputs (the CPU's pose ``sim_c``, view ``vp``,
+    ``eye`` and ``lights``, moved to the card): per stage, in pipeline
+    order, the largest absolute difference and the count of differing
+    elements (NaN equal to NaN), printed one line a stage group as [max,
+    count]. -> [(stage, max_abs, n_diff)]."""
+    import torch
+
+    from reze_tpu_torch import distrib
+    from reze_tpu_torch.core import math3d as m3
+    from reze_tpu_torch.kernels import composite_gpu as CG
+    from reze_tpu_torch.kernels import frame_gpu as FG
+    from reze_tpu_torch.kernels import shade_gpu as SG
+    from reze_tpu_torch.render import pipeline_gpu
+
+    to = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731
+    out, columns = [], {}
+
+    def diff(stage, a, b):
+        a, b = a.cpu(), b.cpu()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+        d = (a.double() - b.double()).abs()
+        d = torch.where(same, torch.zeros_like(d), torch.nan_to_num(d, nan=float("inf")))
+        out.append((stage, float(d.max()) if d.numel() else 0.0, int((~same).sum())))
+        if stage.endswith("rows") and out[-1][2]:  # which row columns part
+            columns[stage] = torch.nonzero((~same).reshape(-1, a.shape[-1]).any(0)).flatten(
+                ).tolist()
+
+    pos, nrm, uvs, mat_mod = sim_c[7], sim_c[8], sim_c[9], sim_c[10]
+    side = {"cpu": (model_c, pos, nrm, uvs, mat_mod, vp, eye, lights),
+            "card": (model_g, to(pos), to(nrm), to(uvs),
+                     None if mat_mod is None else tuple(to(x) for x in mat_mod),
+                     to(vp), to(eye), distrib._map(to, lights))}
+    dims = pipeline_gpu.make_dims_fast(cfg)
+    use_mips, lod_bias = pipeline_gpu._mip_args(cfg, model_c)
+    fkw = dict(hp=dims.hp, wp=dims.wp, n_samples=cfg.msaa_samples, use_mips=use_mips,
+               lod_bias=lod_bias)
+    st = {}
+    for name, (model, p, n, u, mm, v, e, li) in side.items():
+        tables = pipeline_gpu._apply_mat_mod(
+            SG.pack_shade_tables(model.materials, model.atlas), mm)
+        passes = [pipeline_gpu._pass_part(model, cfg, dims, tables, p, n, v, u, spec)
+                  for spec in pipeline_gpu._PASS_SPECS]
+        st[name] = dict(inv_vp=m3.mat4_inverse(v).contiguous(), tables=tables, passes=passes,
+                        ft=FG.pack_frame_rows([x[2] for x in passes], dims.hp // FG.TILE_H,
+                                              dims.wp // FG.TILE_W),
+                        args=(li, cfg.rim_light_intensity, e))
+    c, g = st["cpu"], st["card"]
+    diff("inv_view_proj", g["inv_vp"], c["inv_vp"])
+    for field in ("push_tab", "knot_tab", "tex_tab", "edge_tab"):
+        diff(f"shade_tables.{field}", getattr(g["tables"], field), getattr(c["tables"], field))
+    for i, (pc, pg) in enumerate(zip(c["passes"], g["passes"])):
+        diff(f"pass{i}.corners_clip", pg[0].corners_clip, pc[0].corners_clip)
+        for field in pc[1]._fields:
+            diff(f"pass{i}.setup.{field}", getattr(pg[1], field), getattr(pc[1], field))
+        for field, a, b in zip(("rows", "bin_id", "ok", "tri_of_k", "total"), pg[2], pc[2]):
+            diff(f"pass{i}.pack.{field}", a, b)
+    for field in ("rows", "starts", "counts", "overflow"):
+        diff(f"frame_tables.{field}", getattr(g["ft"], field), getattr(c["ft"], field))
+    tw = lambda s: (s["ft"], s["tables"], *s["args"], s["inv_vp"])  # noqa: E731
+    o_c = FG.render_megakernel_twin(*tw(c), **fkw)
+    moved = (FG.FrameTables(*(to(x) for x in c["ft"])), g["tables"], side["card"][7],
+             cfg.rim_light_intensity, to(eye), to(c["inv_vp"]))
+    diff("frame_kernel.cpu_tables", FG.render_megakernel(*moved, **fkw), o_c)
+    o_g = FG.render_megakernel(*tw(g), **fkw)
+    diff("frame_kernel.card_tables", o_g, o_c)
+    o_gi = FG.render_megakernel(*tw(g)[:-1], to(c["inv_vp"]), **fkw)
+    diff("frame_kernel.card_tables_cpu_inverse", o_gi, o_c)
+    frame_c = pipeline_gpu._finish_frame(o_c, model_c, dims, cfg, use_mips)
+    frame_g = pipeline_gpu._finish_frame(o_g, model_g, dims, cfg, use_mips)
+    quant = lambda f: torch.round(f.clamp(0, 1) * 255).cpu().int()  # noqa: E731
+    past = {"frame": float(((quant(frame_g) - quant(frame_c)).abs().amax(-1) > 1).float().mean()),
+            "frame_cpu_inverse": float(((quant(pipeline_gpu._finish_frame(
+                o_gi, model_g, dims, cfg, use_mips)) - quant(frame_c)).abs().amax(-1) > 1
+                                        ).float().mean())}
+    ckw = dict(half0=cfg.albedo_half_occluded, half1=cfg.albedo_half_visible,
+               with_bloom=cfg.enable_bloom)
+    atlas = lambda m: (m.atlas.mip_flat if use_mips  # noqa: E731
+                       else m.atlas.texels.reshape(-1, 4)).contiguous()
+    diff("composite.image", CG.composite(o_g, atlas(model_g), **ckw)[0],
+         CG.composite(o_c, atlas(model_c), **ckw)[0])
+    diff("frame", frame_g, frame_c)
+    groups = {}
+    for stage, d, n in out:
+        head, _, tail = stage.partition(".")
+        groups.setdefault(head, {})[tail or "all"] = [d, n]
+    for stage, cols in columns.items():
+        head, _, tail = stage.partition(".")
+        groups[head][tail + "_columns"] = cols
+    for head, fields in groups.items():
+        phase("divergence", stage=head, **{k: json.dumps(v) for k, v in fields.items()})
+    phase("divergence", share_past_1_255=past)
+    return out
+
+
 def engine_small_check(dev, pmx_path: str, vmd_path: str) -> dict:
     """The model at ENGINE_SMALL through the Engine on the card and on the
     CPU, ENGINE_SMALL_FRAMES frames of the clip at 1/60 s. Each frame holds
@@ -1002,8 +1125,10 @@ def engine_small_check(dev, pmx_path: str, vmd_path: str) -> dict:
     one-ulp change of the clip time moves a few percent of pixels past
     1/255 (a flipped depth order among them, an extrapolated normal).
     Also printed: the card's render of the CPU's own pose (its simulate
-    outputs moved to the card) against the CPU's, and the largest vertex
-    gap between the two devices' poses. -> the shares and gaps."""
+    outputs moved to the card) against the CPU's, past 1/255 on at most
+    RENDER_ONLY_TOL of pixels, that render walked stage by stage for the
+    first frame (:func:`divergence_walk`), and the largest vertex gap
+    between the two devices' poses. -> the shares, gaps and the walk."""
     import numpy as np
     import torch
 
@@ -1026,7 +1151,7 @@ def engine_small_check(dev, pmx_path: str, vmd_path: str) -> dict:
         engines[name] = e
     quant = lambda f: torch.round(f.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()  # noqa: E731
     near = lambda a, b: np.abs(a.astype(int) - b).max(-1) <= 1  # noqa: E731
-    out = {k: [] for k in ("gpu", "witness1", "witness2", "render_only", "pose_gap")}
+    out = {k: [] for k in ("gpu", "witness1", "witness2", "render_only", "pose_gap", "walk")}
     for _ in range(ENGINE_SMALL_FRAMES):
         ec, eg = engines["cpu"], engines["gpu"]
         # the card's render of the CPU's pose, from the states before this frame
@@ -1048,15 +1173,23 @@ def engine_small_check(dev, pmx_path: str, vmd_path: str) -> dict:
             uvs=to(sim_c[9]), mat_mod=None if sim_c[10] is None else tuple(
                 to(x) for x in sim_c[10]))[0])
         out["render_only"].append(float(near(f_g, f_c).mean()))
+        if not out["walk"]:  # the first frame, stage by stage
+            out["walk"] = divergence_walk(dev, ec.model.arrays, eg.model.arrays, cfg, sim_c, vp,
+                                          eye, ec._lights)
         frames = {name: e.render(dts[name]) for name, e in engines.items()}
         for name in ("gpu", "witness1", "witness2"):
             out[name].append(float(near(frames[name], frames["cpu"]).mean()))
     phase("engine_check", step=f"{sw}x{sh}_gpu_vs_cpu", frames=ENGINE_SMALL_FRAMES,
           **{f"within_1_255_{k}" if k != "pose_gap" else k: [round(x, 6) for x in v]
-             for k, v in out.items()})
+             for k, v in out.items() if k != "walk"},
+          first_divergent=next((row for row in out["walk"] if row[2]), None))
     for g, w1, w2 in zip(out["gpu"], out["witness1"], out["witness2"]):
         allowed = max(0.01, RIG_SPREAD * (1.0 - min(w1, w2)))
         require(1.0 - g <= allowed, ("engine small frames, GPU vs CPU", out))
+    # from one pose the two devices render alike: the plane sums run in a
+    # fixed order (ROADMAP queue 3)
+    require(all(1.0 - r <= RENDER_ONLY_TOL for r in out["render_only"]),
+            ("the card's render of the CPU's pose", out["render_only"]))
     return out
 
 
@@ -1478,6 +1611,213 @@ def frontend_phase(dev, smi: str, scale: str = "flagship") -> dict:
                 proc.kill()
                 proc.wait()
     return res
+
+
+def mesh_phase(dev, smi: str, counters: dict) -> dict:
+    """Phase 10a: the crowd over a mesh. MESH_C characters of the written
+    flagship-width model at MESH_SIZE x MESH_SIZE, physics on, phase 9d's
+    staggered starts and orbiting cameras, MESH_FRAMES crowd steps on the
+    "group" and "stream" routes, unsharded and over each mesh of
+    ``mesh_layouts``: states and frames equal bit for bit to the unsharded
+    crowd's, and each shard launching its batched kernels once a crowd
+    step (counts set to 0 just before each run and read just after); then
+    char-frames/s and launches per crowd frame of each, two turns. With
+    fewer than two cards the two-card mesh is not run, and a line says so.
+    -> {route: {mesh: char-frames/s of each turn}}."""
+    import math
+    import tempfile
+
+    import torch
+
+    from reze_tpu_torch import distrib, testing
+    from reze_tpu_torch.anim import sampler
+    from reze_tpu_torch.camera import Camera
+    from reze_tpu_torch.core.build import load_model
+    from reze_tpu_torch.core.types import EngineConfig
+    from reze_tpu_torch.examples import crowd as crowd_front
+    from reze_tpu_torch.formats.vmd import load_vmd
+    from reze_tpu_torch.render import pipeline
+
+    n_cards = len(distrib.make_mesh().devices)
+    phase("mesh", make_mesh_devices=n_cards, card=smi)
+    cfg = EngineConfig(width=MESH_SIZE, height=MESH_SIZE, camera_distance=crowd_front.RADIUS,
+                       camera_target=crowd_front.TARGET)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        pmx, vmd = testing.write_scene(d, testing.make_pmx_spec(ENGINE_SEED, "flagship"))
+        built = load_model(pmx, cfg, device=dev)
+        motion = load_vmd(vmd)
+    model = built.arrays
+    j, nm = model.skeleton.j, model.morphs.offsets.shape[0]
+    track = sampler.build_animation(motion, built.bone_name_to_id, built.morph_name_to_id, j,
+                                    nm, dev)
+    base = torch.zeros((j, 4), device=dev)
+    base[:, 3] = 1.0
+    breath = {"mask": torch.zeros(j, dtype=torch.bool, device=dev),
+              "ranges": torch.zeros(j, device=dev), "base": base,
+              "half_cycle": torch.tensor(2.5, device=dev),
+              "start": torch.tensor(track.duration + 0.2, device=dev)}
+    n = MESH_C
+    states0 = dataclasses.replace(
+        distrib.batch_state(model, n), playing=torch.ones(n, dtype=torch.bool, device=dev),
+        play_t0=-torch.arange(n, dtype=torch.float32, device=dev) * crowd_front.STAGGER)
+    cams = [Camera(alpha=math.pi + 0.25 * (i - n / 2), radius=crowd_front.RADIUS,
+                   target=crowd_front.TARGET, aspect=1.0) for i in range(n)]
+    vps = torch.stack([c.view_proj(dev) for c in cams])
+    eyes = torch.stack([c.position(dev) for c in cams])
+    shared = (torch.tensor(1 / 30, device=dev), pipeline.make_lights(cfg, dev), track, breath)
+    meshes = {"one_card": distrib.make_mesh(1), "two_shards": distrib.make_mesh(
+        devices=[dev] * 2), "four_shards": distrib.make_mesh(devices=[dev] * 4)}
+    if n_cards >= 2:
+        meshes["two_cards"] = distrib.make_mesh(2)
+    else:
+        print(f"two_cards: skipped, {n_cards} visible", flush=True)
+    kernels = {"group": ("frame_crowd", "composite_crowd"),
+               "stream": ("stream_crowd", "shade_stack_crowd", "composite_crowd")}
+
+    def run(step, mesh):
+        """MESH_FRAMES steps from the same start -> (states, frames,
+        launches, seconds), gathered on ``dev``."""
+        dt, lights, tr, br = shared
+        states, vp, ey = ((states0, vps, eyes) if mesh is None else
+                          (distrib.shard_batch(x, mesh) for x in (states0, vps, eyes)))
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_FRAMES):
+            states, frames = step(states, dt, vp, ey, lights, tr, br)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if mesh is not None:
+            states, frames = distrib.gather(states, dev), distrib.gather(frames, dev)
+        return states, frames, launches, seconds
+
+    rates = {}
+    for route, names in kernels.items():
+        rcfg = dataclasses.replace(cfg, rasterizer=route)
+        steps = {"unsharded": (distrib.make_batched_step(model, rcfg), None)}
+        steps.update({k: (distrib.make_batched_step(model, rcfg, mesh=m), m)
+                      for k, m in meshes.items()})
+        rates[route] = {k: [] for k in steps}
+        for turn in range(2):
+            want = None
+            for name, (step, mesh) in steps.items():
+                states, frames, launches, sec = run(step, mesh)
+                shards = 1 if mesh is None else mesh.shape[0]
+                rates[route][name].append(n * MESH_FRAMES / sec)
+                if turn == 0:
+                    expect = {k: shards * MESH_FRAMES * int(k in names) for k in counters}
+                    require(launches == expect, (route, name, "mesh launches", launches, expect))
+                    if want is None:
+                        want = (states, frames)
+                        require(bool(torch.isfinite(frames).all()) and frames.shape == (
+                            n, MESH_SIZE, MESH_SIZE, 3), (route, "mesh crowd frames"))
+                        covered = (frames.sum(-1) > 0.01).float().mean((1, 2))
+                        require(float(covered.min()) > 0.02, (route, "covered", covered))
+                    else:
+                        flat_w, flat_g = [], []
+                        distrib._map(flat_w.append, want[0])
+                        distrib._map(flat_g.append, states)
+                        same = torch.equal(frames, want[1]) and all(
+                            torch.equal(a, b) or bool(((a == b) | (a.isnan() & b.isnan())).all())
+                            for a, b in zip(flat_g, flat_w))
+                        phase("mesh_check", route=route, mesh=name, shards=shards,
+                              against="unsharded", equal=same)
+                        require(same, (route, name, "sharded crowd differs from the unsharded"))
+                phase("mesh_timing", route=route, mesh=name, turn=turn, card=smi, chars=n,
+                      shards=shards, char_frames_per_s=round(n * MESH_FRAMES / sec, 3),
+                      launches_per_crowd_frame={k: launches[k] // MESH_FRAMES for k in names})
+    return rates
+
+
+def ladder_phase(dev, smi: str) -> dict:
+    """Phase 10b: the tutorial ladder. Each stage of ``python -m
+    reze_tpu_torch.examples.tutorial --stage N`` and each rung ``python -m
+    reze_tpu_torch.examples.tutorial.vN`` as a process on the card on the
+    written flagship-width model, all started together and each stopped:
+    its seconds, its image's covered share, the PNG decoded back. Then, in
+    this process, each rung's and stage's card image against the CPU's on
+    the written small model: within 1/255 on >= LADDER_FRAC of pixels. ->
+    {name: seconds}."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from reze_tpu_torch.formats import image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(root, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        runs = [(f"stage{i}", ["reze_tpu_torch.examples.tutorial", "--stage", str(i)])
+                for i in range(5)] + [(f"v{i}", [f"reze_tpu_torch.examples.tutorial.v{i}"])
+                                      for i in range(5)]
+        procs = {}
+        for name, mod in runs:
+            out = os.path.join(work, f"{name}.png")
+            procs[name] = (time.perf_counter(), out, subprocess.Popen(
+                [sys.executable, "-m", *mod, "--written-flagship", "--device",
+                 torch.device(dev).type, "--out", out], cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        try:
+            for name, (t0, out, p) in procs.items():
+                log = p.communicate(timeout=FRONTEND_TIMEOUT)[0]
+                seconds[name] = time.perf_counter() - t0
+                require(p.returncode == 0, (name, p.returncode, log[-3000:]))
+                img = image.load_image(out)
+                covered = float((img[..., :3].max(-1) > 20).mean())
+                phase("ladder", name=name, card=smi, shape=img.shape,
+                      covered=round(covered, 4), process_seconds=f"{seconds[name]:.1f}")
+                require(img.shape[2] == 4 and covered > 0.01, (name, "ladder image"))
+        finally:
+            for _, _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+        ladder_check(dev, work)
+    return seconds
+
+
+def ladder_check(dev, work: str) -> None:
+    """Each rung and stage rendered on ``dev`` and on the CPU from the
+    written small model (in ``work``), held within 1/255 on >= LADDER_FRAC
+    of pixels."""
+    import numpy as np
+    import torch
+
+    from reze_tpu_torch import testing
+    from reze_tpu_torch.examples import tutorial
+    from reze_tpu_torch.examples.tutorial import v0, v1, v2, v3, v4
+
+    stages = __import__("reze_tpu_torch.examples.tutorial.__main__", fromlist=["main"])
+    pmx, _ = testing.write_scene(work, testing.make_pmx_spec(ENGINE_SEED, "small"))
+    waist = tutorial.WRITTEN_WAIST
+
+    def images(d):
+        m = v3.load(pmx, device=d)
+        rot = torch.zeros((m.arrays.skeleton.j, 4), device=d)
+        rot[:, 3] = 1.0
+        rot[m.bone_name_to_id[waist]] = torch.tensor(v4.YAW_30, device=d)
+        vp = v2.front_view_proj(d)
+        out = {"v0": v0.render(device=d), "v1": v1.render(v1.orbit_view_proj(1.5, 1.1, 3.0, d)),
+               "v2": v2.render(*v2.load_geometry(pmx, d), vp),
+               "v3": v3.render(m.arrays, vp), "v4": v4.posed_frame(m.arrays, rot, vp)}
+        out.update({f"stage{i}": stages.render_stage(i, stages.SIZE, d, pmx, waist)
+                    for i in range(5)})
+        return {k: tutorial.to_uint8(v).astype(np.int32) for k, v in out.items()}
+
+    on_card, on_cpu = images(dev), images("cpu")
+    for name in on_card:
+        frac = float((np.abs(on_card[name] - on_cpu[name]).max(-1) <= 1).mean())
+        phase("ladder_check", name=name, against="cpu", model="small",
+              within_1_255=round(frac, 6))
+        require(frac >= LADDER_FRAC, (name, "ladder card against cpu", frac))
 
 
 def main() -> int:
@@ -2295,6 +2635,18 @@ def run(dev, W: int, H: int, profile: bool = False) -> int:
           frontends_s=f"{t9d - t9c:.1f}", oracle_ms_per_frame=oracle["ms"],
           demo_fps=fronts["demo_fps"], crowd_char_frames_per_s=fronts["crowd_char_frames_per_s"],
           slowest_empty_route=max(empty_s, key=empty_s.get))
+
+    # 10. the crowd over a mesh and the tutorial ladder
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    mesh_rates = mesh_phase(dev, smi, counters)
+    t10a = time.perf_counter()
+    ladder_s = ladder_phase(dev, smi)
+    t10b = time.perf_counter()
+    phase("phase10", card=smi, mesh_s=f"{t10a - t10:.1f}", ladder_s=f"{t10b - t10a:.1f}",
+          slowest_ladder_process=max(ladder_s, key=ladder_s.get),
+          group_char_frames_per_s={k: [round(x, 3) for x in v]
+                                   for k, v in mesh_rates["group"].items()})
 
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [

@@ -48,6 +48,15 @@ def morph_sum(weights: Tensor, table: Tensor) -> Tensor:
     return torch.tensordot(weights.double(), table.double(), dims=([-1], [0])).to(table.dtype)
 
 
+def sum3(x: Tensor, dim: int = -1) -> Tensor:
+    """The sum over a 3-long axis in one fixed order, (x0 + x1) + x2: a
+    reduction kernel may add three terms in another order on another
+    device, and a last-bit difference in a plane coefficient moves a depth
+    tie."""
+    a, b, c = x.unbind(dim)
+    return (a + b) + c
+
+
 def ease_in_out(t: Tensor) -> Tensor:
     """Quadratic ease-in-out."""
     return torch.where(t < 0.5, 2.0 * t * t, 1.0 - torch.square(-2.0 * t + 2.0) / 2.0)

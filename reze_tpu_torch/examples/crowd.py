@@ -1,7 +1,8 @@
 """A crowd: ``--batch`` characters of one model, each playing the clip
 from its own start (0.35 s apart) under its own orbiting camera, stepped
-together by ``distrib.make_batched_step`` (one simulate and one launch of
-each kernel per chunk of ``--chunk`` characters on the "group" route);
+together by ``distrib.make_batched_step`` over a one-device mesh (one
+simulate and one launch of each kernel per chunk of ``--chunk`` characters
+on the "group" route);
 prints the crowd step's ms and char-frames/s and writes ``crowd.png``, a
 montage two characters wide, into ``--out``.
 
@@ -73,8 +74,10 @@ def main(argv=None) -> dict:
               "half_cycle": torch.tensor(2.5, device=dev),
               "start": torch.tensor(track.duration + 0.2, device=dev)}
     lights = pipeline.make_lights(cfg, dev)
+    # one device, the batch local to it, as the reference's make_mesh(1)
+    mesh = distrib.make_mesh(1, devices=[dev])
     step = distrib.make_batched_step(model, cfg, per_character_clips=False,
-                                     crowd_chunk=args.chunk or None)
+                                     crowd_chunk=args.chunk or None, mesh=mesh)
     # staggered clip starts: every character dances out of phase
     states = distrib.batch_state(model, n)
     states = dataclasses.replace(
@@ -82,8 +85,9 @@ def main(argv=None) -> dict:
         play_t0=-torch.arange(n, dtype=torch.float32, device=dev) * STAGGER)
     cams = [Camera(alpha=math.pi + 0.25 * (i - n / 2), radius=RADIUS, target=TARGET, aspect=1.0)
             for i in range(n)]
-    vps = torch.stack([c.view_proj(dev) for c in cams])
-    eyes = torch.stack([c.position(dev) for c in cams])
+    states, vps, eyes = (distrib.shard_batch(x, mesh) for x in (
+        states, torch.stack([c.view_proj(dev) for c in cams]),
+        torch.stack([c.position(dev) for c in cams])))
     dt = torch.tensor(1 / 30, device=dev)
 
     def sync():
@@ -93,8 +97,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     states, frames = step(states, dt, vps, eyes, lights, track, breath)
     sync()
-    print(f"first crowd step: {time.perf_counter() - t0:.1f}s  frames {tuple(frames.shape)}",
-          flush=True)
+    print(f"first crowd step: {time.perf_counter() - t0:.1f}s  frames "
+          f"{tuple(distrib.gather(frames, dev).shape)}", flush=True)
     t0 = time.perf_counter()
     for _ in range(args.frames):
         states, frames = step(states, dt, vps, eyes, lights, track, breath)
@@ -104,6 +108,7 @@ def main(argv=None) -> dict:
     print(f"crowd step: {sec * 1e3:.1f} ms for {n} characters = {rate:.1f} char-frames/s "
           f"on {dev}", flush=True)
 
+    frames = distrib.gather(frames, dev)
     out = torch.round(torch.clamp(frames, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
     os.makedirs(args.out, exist_ok=True)
     png = os.path.join(args.out, "crowd.png")

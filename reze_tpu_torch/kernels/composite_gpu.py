@@ -104,10 +104,11 @@ def _launch(o: Tensor, atlas: Tensor, half0: bool, half1: bool, with_bloom: bool
                          "texels 4-byte aligned or (S, 16) quad footprints 16-byte aligned")
     img = torch.empty(lead + (3, hp, wp), dtype=torch.float32, device=o.device)
     half = torch.empty(lead + (3, hp // 2, wp), dtype=torch.float32, device=o.device)
-    err = cuda_lib.library().reze_composite(
-        o.data_ptr(), atlas.data_ptr(), atlas.shape[0], int(quad), img.data_ptr(),
-        half.data_ptr(), hp, wp, int(half0), int(half1), int(with_bloom), n_chars or 1,
-        torch.cuda.current_stream(o.device).cuda_stream)
+    with torch.cuda.device(o.device):  # the kernel launches on the current device
+        err = cuda_lib.library().reze_composite(
+            o.data_ptr(), atlas.data_ptr(), atlas.shape[0], int(quad), img.data_ptr(),
+            half.data_ptr(), hp, wp, int(half0), int(half1), int(with_bloom), n_chars or 1,
+            torch.cuda.current_stream(o.device).cuda_stream)
     cuda_lib.check(err, "reze_composite")
     return img, (half if with_bloom else None)
 

@@ -235,11 +235,14 @@ __global__ void __launch_bounds__(NTHREADS, 2) frame_kernel(FrameArgs a) {
 
 template <int NS, bool ANALYTIC, bool CROWD>
 void launch_as(const FrameArgs& a, dim3 grid, cudaStream_t stream) {
-  static bool configured = false;  // the attribute holds for the process
-  if (!configured) {
+  // the attribute belongs to the current device's context: set it once per device
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device >= MAX_DEVICES || !configured[device]) {
     cudaFuncSetAttribute(frame_kernel<NS, ANALYTIC, CROWD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TileSmem));
-    configured = true;
+    if (device < MAX_DEVICES) configured[device] = true;
   }
   frame_kernel<NS, ANALYTIC, CROWD><<<grid, NTHREADS, sizeof(TileSmem), stream>>>(a);
 }

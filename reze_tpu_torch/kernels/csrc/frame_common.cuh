@@ -110,6 +110,7 @@ __device__ __forceinline__ void push_winner(float* stack, int tid, float& stenci
 // bound is its bytes anyway.
 
 constexpr int NTHREADS = 512;
+constexpr int MAX_DEVICES = 64;  // devices whose launch attribute is remembered
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int PPT = NPIX / NTHREADS;         // pixels per thread
 constexpr int ROW_STEP = NTHREADS / TILE_W;  // rows between a thread's pixels

@@ -102,9 +102,9 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
     lead, t = tri.valid.shape[:-1], tri.valid.shape[-1]
     dev = tri.valid.device
     inv2a = tri.inv_area2
-    za = torch.sum(tri.ea * tri.z, dim=-1) * inv2a
-    zb = torch.sum(tri.eb * tri.z, dim=-1) * inv2a
-    zc = torch.sum(tri.ec * tri.z, dim=-1) * inv2a
+    za = m3.sum3(tri.ea * tri.z) * inv2a
+    zb = m3.sum3(tri.eb * tri.z) * inv2a
+    zc = m3.sum3(tri.ec * tri.z) * inv2a
 
     xmin = torch.where(tri.valid, tri.sx.amin(-1), 1e9)
     xmax = torch.where(tri.valid, tri.sx.amax(-1), -1e9)
@@ -117,7 +117,8 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
     code = (torch.round(torch.clamp(alpha, 0.0, 1.0) * 1023.0)
             + 1024.0 * (ramp_gid + 16.0 * tex_gid + 256.0 * edge_gid + 4096.0 * is_hair))
     code = code.expand(lead + (t,))
-    ig = torch.rsqrt(torch.clamp(ea * ea + eb * eb, min=1e-24))
+    # 1 / sqrt, each correctly rounded on every device (rsqrt is not)
+    ig = 1.0 / torch.sqrt(torch.clamp(ea * ea + eb * eb, min=1e-24))
     zero = torch.zeros_like(code)
     cols = [ea[..., 0], eb[..., 0], ec[..., 0], ea[..., 1], eb[..., 1], ec[..., 1],
             ea[..., 2], eb[..., 2], ec[..., 2], za, zb, zc, ymin, ymax,
@@ -127,7 +128,7 @@ def pack_pass_part(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor,
         # their size, so they are summed in float64 and rounded once
         iw = tri.inv_w[..., None]
         vals = torch.cat([corner_uv * iw, corner_nrm * iw, iw], dim=-1).double()  # (T, 3, 6)
-        attr = torch.cat([torch.sum(e.double()[..., None] * vals, dim=-2) for e in (ea, eb, ec)],
+        attr = torch.cat([m3.sum3(e.double()[..., None] * vals, dim=-2) for e in (ea, eb, ec)],
                          dim=-1).float()
     else:
         attr = torch.zeros(lead + (t, 18), device=dev)
@@ -291,15 +292,16 @@ def launch_tile_kernel(entry: str, tables: FrameTables, shade_tables: SG.ShadeTa
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
     lead = () if n_chars is None else (n_chars,)
     out = torch.empty(lead + (2 * SG.O_CH, hp, wp), dtype=torch.float32, device=dev)
-    err = getattr(cuda_lib.library(), entry)(
-        rows.data_ptr(), stride, tables.starts.data_ptr(), tables.counts.data_ptr(),
-        shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
-        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
-        shade_tables.tex_tab.shape[1],
-        shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
-        lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
-        out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels, n_chars or 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernel launches on the current device
+        err = getattr(cuda_lib.library(), entry)(
+            rows.data_ptr(), stride, tables.starts.data_ptr(), tables.counts.data_ptr(),
+            shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
+            shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
+            shade_tables.tex_tab.shape[1],
+            shade_tables.edge_tab.data_ptr(), shade_tables.edge_tab.shape[0],
+            lights.direction.data_ptr(), lcol.data_ptr(), misc.data_ptr(), inv_vp.data_ptr(),
+            out.data_ptr(), hp, wp, n_samples, int(analytic), n_levels, n_chars or 1,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, entry)
     return out
 

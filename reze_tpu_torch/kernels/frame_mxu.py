@@ -52,9 +52,10 @@ def render_megakernel_mxu(tables: FG.FrameTables, *, hp: int, wp: int,
     FG.check_frame_tables(tables, hp, wp, n_samples)
     dev = tables.rows.device
     out = torch.empty((2 * SG.L_CH, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_frame_mxu(
-        tables.rows.data_ptr(), tables.starts.data_ptr(), tables.counts.data_ptr(),
-        out.data_ptr(), hp, wp, n_samples, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernel launches on the current device
+        err = cuda_lib.library().reze_frame_mxu(
+            tables.rows.data_ptr(), tables.starts.data_ptr(), tables.counts.data_ptr(),
+            out.data_ptr(), hp, wp, n_samples, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "reze_frame_mxu")
     render_megakernel_mxu.launches += 1
     return out

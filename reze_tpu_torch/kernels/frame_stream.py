@@ -153,10 +153,11 @@ def _launch_stream(tables: StreamTables, hp: int, wp: int, n_samples: int,
             or tuple(bounds.shape) != lead + (8, b_total)):
         raise ValueError(f"bounds: need contiguous int32 {lead + (8, b_total)} on {dev}")
     out = torch.empty(lead + (S_OUT, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_frame_stream(
-        rows.data_ptr(), rows.stride(0) if n_chars is not None else 0, bounds.data_ptr(),
-        out.data_ptr(), hp, wp, n_samples, n_chars or 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernel launches on the current device
+        err = cuda_lib.library().reze_frame_stream(
+            rows.data_ptr(), rows.stride(0) if n_chars is not None else 0, bounds.data_ptr(),
+            out.data_ptr(), hp, wp, n_samples, n_chars or 1,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "reze_frame_stream")
     return out
 

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import math3d as m3
 from ..render.raster import SAMPLE_OFFSETS, TriSetup
 from . import cuda_lib
 
@@ -82,9 +83,9 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
                          f"{_KEY_SHIFT}")
     dev = tri.valid.device
     inv2a = tri.inv_area2
-    za = torch.sum(tri.ea * tri.z, dim=1) * inv2a
-    zb = torch.sum(tri.eb * tri.z, dim=1) * inv2a
-    zc = torch.sum(tri.ec * tri.z, dim=1) * inv2a
+    za = m3.sum3(tri.ea * tri.z) * inv2a
+    zb = m3.sum3(tri.eb * tri.z) * inv2a
+    zc = m3.sum3(tri.ec * tri.z) * inv2a
 
     xmin = torch.where(tri.valid, tri.sx.amin(1), 1e9)
     xmax = torch.where(tri.valid, tri.sx.amax(1), -1e9)
@@ -98,7 +99,7 @@ def pack_tables(tri: TriSetup, corner_uv: Tensor, corner_nrm: Tensor, tri_mat: T
     # size, so they are summed in float64 and rounded once
     iw = tri.inv_w[..., None]
     vals = torch.cat([corner_uv * iw, corner_nrm * iw, iw], dim=-1).double()  # (T, 3, 6)
-    attr = [torch.sum(e.double()[:, :, None] * vals, dim=1).float() for e in (ea, eb, ec)]
+    attr = [m3.sum3(e.double()[:, :, None] * vals, dim=1).float() for e in (ea, eb, ec)]
     tab = torch.cat([ea, eb, ec, torch.stack([za, zb, zc, ymin, ymax, xmin, xmax], dim=1),
                      *attr, tri_mat[:, None].to(torch.float32),
                      torch.zeros((t, ROW_W - C_MAT - 1), device=dev)], dim=1)
@@ -192,11 +193,12 @@ def raster_pass(tables: PassTables, zbuf: Tensor, *, bx: int, depth_write: bool,
     _check(tables, zbuf, bx)
     s, hp, wp = zbuf.shape
     gbuf = torch.empty((N_CH, hp, wp), dtype=torch.float32, device=zbuf.device)
-    err = cuda_lib.library().reze_raster(
-        tables.tab.data_ptr(), tables.ids.data_ptr(), tables.ids.shape[0],
-        tables.starts.data_ptr(), tables.counts.data_ptr(), zbuf.data_ptr(),
-        gbuf.data_ptr(), hp, wp, s, int(depth_write), int(with_attrs),
-        torch.cuda.current_stream(zbuf.device).cuda_stream)
+    with torch.cuda.device(zbuf.device):  # the kernel launches on the current device
+        err = cuda_lib.library().reze_raster(
+            tables.tab.data_ptr(), tables.ids.data_ptr(), tables.ids.shape[0],
+            tables.starts.data_ptr(), tables.counts.data_ptr(), zbuf.data_ptr(),
+            gbuf.data_ptr(), hp, wp, s, int(depth_write), int(with_attrs),
+            torch.cuda.current_stream(zbuf.device).cuda_stream)
     cuda_lib.check(err, "reze_raster")
     raster_pass.launches += 1
     return zbuf, gbuf

@@ -345,13 +345,14 @@ def _launch_shade_stack(stack: Tensor, shade_tables: ShadeTables, lights,
     check_shade_args(shade_tables, lights, lcol, misc, inv_vp, dev, n_chars)
     n_levels = shade_tables.tex_tab.shape[1] - 4 if use_mips else 0
     out = torch.empty(lead + (2 * O_CH, hp, wp), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().reze_shade_stack(
-        stack.data_ptr(), shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
-        shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
-        shade_tables.tex_tab.shape[1], shade_tables.edge_tab.data_ptr(),
-        shade_tables.edge_tab.shape[0], lights.direction.data_ptr(), lcol.data_ptr(),
-        misc.data_ptr(), inv_vp.data_ptr(), out.data_ptr(), hp, wp, n_levels,
-        n_chars or 1, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernel launches on the current device
+        err = cuda_lib.library().reze_shade_stack(
+            stack.data_ptr(), shade_tables.knot_tab.data_ptr(), shade_tables.knot_tab.shape[0],
+            shade_tables.tex_tab.data_ptr(), shade_tables.tex_tab.shape[0],
+            shade_tables.tex_tab.shape[1], shade_tables.edge_tab.data_ptr(),
+            shade_tables.edge_tab.shape[0], lights.direction.data_ptr(), lcol.data_ptr(),
+            misc.data_ptr(), inv_vp.data_ptr(), out.data_ptr(), hp, wp, n_levels,
+            n_chars or 1, torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "reze_shade_stack")
     return out
 

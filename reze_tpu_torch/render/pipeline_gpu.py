@@ -99,25 +99,30 @@ _PASS_SPECS = (
 )
 
 
+def _pass_part(model: ModelArrays, cfg: EngineConfig, dims: FastDims, tables: SG.ShadeTables,
+               pos: Tensor, nrm: Tensor, view_proj: Tensor, uvs: Tensor | None, spec):
+    """One pass of ``_PASS_SPECS`` -> (its projected triangle slice, its
+    triangle setup, its ``frame_gpu.pack_pass_part`` part)."""
+    cls, cull, outline = spec
+    data = _gather_pass(model, pos, nrm, view_proj, cls, outline, cfg.outline_scale, uvs)
+    t = data.valid.shape[0]
+    tri = raster.setup_triangles(data.corners_clip, data.valid, dims.wp, dims.hp, cull)
+    cols = tables.push_tab[..., torch.clamp(data.tri_mat, min=0), :]  # (..., T, 7)
+    alpha = cols[..., 1] if outline else cols[..., 0]
+    cap = -(-int(t * cfg.pair_cap_scale + 1024) // FG.CHUNK) * FG.CHUNK
+    part = FG.pack_pass_part(tri, data.corner_uv, data.corner_nrm, alpha, cols[..., 2],
+                             cols[..., 4], cols[..., 5], cols[..., 6], dims.hp // FG.TILE_H,
+                             dims.wp // FG.TILE_W, cap, with_attrs=not outline)
+    return data, tri, part
+
+
 def _pass_parts(model: ModelArrays, cfg: EngineConfig, dims: FastDims,
                 tables: SG.ShadeTables, pos: Tensor, nrm: Tensor, view_proj: Tensor,
                 uvs: Tensor | None) -> list:
     """Per-pass triangle setup + pair enumeration (``frame_gpu.
     pack_pass_part``) for the megakernels' packs."""
-    parts = []
-    by, bx = dims.hp // FG.TILE_H, dims.wp // FG.TILE_W
-    for cls, cull, outline in _PASS_SPECS:
-        data = _gather_pass(model, pos, nrm, view_proj, cls, outline,
-                            cfg.outline_scale, uvs)
-        t = data.valid.shape[0]
-        tri = raster.setup_triangles(data.corners_clip, data.valid, dims.wp, dims.hp, cull)
-        cols = tables.push_tab[..., torch.clamp(data.tri_mat, min=0), :]  # (..., T, 7)
-        alpha = cols[..., 1] if outline else cols[..., 0]
-        cap = -(-int(t * cfg.pair_cap_scale + 1024) // FG.CHUNK) * FG.CHUNK
-        parts.append(FG.pack_pass_part(
-            tri, data.corner_uv, data.corner_nrm, alpha, cols[..., 2], cols[..., 4],
-            cols[..., 5], cols[..., 6], by, bx, cap, with_attrs=not outline))
-    return parts
+    return [_pass_part(model, cfg, dims, tables, pos, nrm, view_proj, uvs, spec)[2]
+            for spec in _PASS_SPECS]
 
 
 def _build_group_tables(model: ModelArrays, cfg: EngineConfig, dims: FastDims,

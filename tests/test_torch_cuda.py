@@ -830,3 +830,30 @@ def test_crowd_step_makes_no_synchronising_copy(dev, rasterizer, physics):
     syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     assert len(syncs) == (1 if physics else 0), syncs
     assert bool(torch.isfinite(frames).all())
+
+
+def test_kernels_launch_on_their_tensors_card(dev):
+    """The frame and composite kernels on ``cuda:1`` while ``cuda:0`` is
+    current: each wrapper makes its tensors' device current for the
+    launch, and the frame kernel's shared-memory attribute is set for that
+    device's context (the first launch there asks for more than 48 KB)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices; "
+                    f"{torch.cuda.device_count()} visible")
+    second = torch.device("cuda", 1)
+    ft = ptesting.random_frame_tables(11, N_TRIS, 32, WP, device=second)
+    tables, lights, eye, inv_vp = _shade_args(second)
+    atlas = torch.as_tensor(ptesting.random_shade_inputs(5)["mip_flat"], device=second)
+    kw = dict(hp=32, wp=WP, n_samples=4, use_mips=True)
+    ckw = dict(half0=True, half1=True, with_bloom=True)
+    with torch.cuda.device(0):
+        o = FG.render_megakernel(ft, tables, lights, 0.45, eye, inv_vp, **kw)
+        img, seed = CG.composite(o, atlas, **ckw)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(second)
+    assert o.device == img.device == second
+    o_t = FG.render_megakernel_twin(ft, tables, lights, 0.45, eye, inv_vp, **kw)
+    assert ptesting.bit_diff(o, o_t) == (1.0, 0.0)
+    img_t, seed_t = CG.composite_twin(o_t, atlas, **ckw)
+    assert (img - img_t).abs().max().item() <= 1e-6
+    assert (seed - seed_t).abs().max().item() <= 1e-6
