@@ -39,6 +39,7 @@ import dataclasses
 
 import torch
 
+from . import tracing
 from .core.types import DiagState, EngineConfig, ModelArrays, SceneState, init_scene_state
 from .kernels import shade_gpu as SG
 from .render import pipeline_gpu
@@ -215,9 +216,10 @@ def make_batched_step(model: ModelArrays, cfg: EngineConfig, per_character_clips
     def crowd_step(states, dt, view_projs, eyes, lights, track, breath):
         (t, rot, trans, mw, tween_state, phys_state, contact_overflow, pos, nrm, uvs,
          mat_mod) = single.simulate(states, dt, track, breath)
-        frames, pair_overflow = pipeline_gpu.render_crowd_mega(
-            model, cfg, dims, pos, nrm, view_projs, eyes, lights, uvs=uvs, mat_mod=mat_mod,
-            shade_tables=shade_tables)
+        with tracing.span("render"):
+            frames, pair_overflow = pipeline_gpu.render_crowd_mega(
+                model, cfg, dims, pos, nrm, view_projs, eyes, lights, uvs=uvs, mat_mod=mat_mod,
+                shade_tables=shade_tables)
         new_states = dataclasses.replace(
             states, time=t, local_rot=rot, local_trans=trans, morph_weights=mw,
             tween=tween_state, physics=phys_state,
@@ -225,17 +227,19 @@ def make_batched_step(model: ModelArrays, cfg: EngineConfig, per_character_clips
         return new_states, frames
 
     def step(states, dt, view_projs, eyes, lights, track, breath):
-        n = view_projs.shape[0]
-        if crowd_chunk is None or n <= crowd_chunk:
-            return crowd_step(states, dt, view_projs, eyes, lights, track, breath)
-        if n % crowd_chunk:
-            raise ValueError(f"crowd_chunk={crowd_chunk} does not divide the crowd of {n}")
-        outs = []
-        for lo in range(0, n, crowd_chunk):
-            part = slice(lo, lo + crowd_chunk)
-            outs.append(crowd_step(at(states, part), dt, view_projs[part], eyes[part], lights,
-                                   at(track, part) if per_character_clips else track, breath))
-        return _join([o[0] for o in outs], torch.cat), torch.cat([o[1] for o in outs])
+        with tracing.span("crowd.step"):
+            n = view_projs.shape[0]
+            if crowd_chunk is None or n <= crowd_chunk:
+                return crowd_step(states, dt, view_projs, eyes, lights, track, breath)
+            if n % crowd_chunk:
+                raise ValueError(f"crowd_chunk={crowd_chunk} does not divide the crowd of {n}")
+            outs = []
+            for lo in range(0, n, crowd_chunk):
+                part = slice(lo, lo + crowd_chunk)
+                outs.append(crowd_step(at(states, part), dt, view_projs[part], eyes[part],
+                                       lights, at(track, part) if per_character_clips else track,
+                                       breath))
+            return _join([o[0] for o in outs], torch.cat), torch.cat([o[1] for o in outs])
 
     return step
 

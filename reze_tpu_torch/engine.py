@@ -20,6 +20,7 @@ import warnings
 import numpy as np
 import torch
 
+from . import tracing
 from .anim import sampler, tween
 from .camera import Camera
 from .core.build import BuiltModel
@@ -258,38 +259,44 @@ class Engine:
         the reference's render loop; pass a value for a deterministic run.
         """
         assert self._step_fn is not None, "no model loaded"
-        now = _time.perf_counter()
-        if dt is None:
-            dt = (now - self._last_frame_time) if self._last_frame_time else 1.0 / 60.0
-        self._last_frame_time = now
+        with tracing.span("engine.render"):
+            now = _time.perf_counter()
+            if dt is None:
+                dt = (now - self._last_frame_time) if self._last_frame_time else 1.0 / 60.0
+            self._last_frame_time = now
 
-        vp, eye = self.camera.view_proj(self.device), self.camera.position(self.device)
-        if self._camera_track is not None and self._playing:
-            # the clip's camera keys drive the view while it plays
-            clip_t = float(self.state.time) + dt - float(self.state.play_t0)
-            d, tgt, rotv, fov = sampler.sample_camera(self._camera_track,
-                                                      self._tensor(clip_t))
-            vp, eye = sampler.camera_view_proj(d, tgt, rotv, fov, self.camera.aspect,
-                                               self.camera.near, self.camera.far)
+            vp, eye = self.camera.view_proj(self.device), self.camera.position(self.device)
+            if self._camera_track is not None and self._playing:
+                # the clip's camera keys drive the view while it plays
+                with tracing.span("sync"):
+                    clip_t = float(self.state.time) + dt - float(self.state.play_t0)
+                d, tgt, rotv, fov = sampler.sample_camera(self._camera_track,
+                                                          self._tensor(clip_t))
+                vp, eye = sampler.camera_view_proj(d, tgt, rotv, fov, self.camera.aspect,
+                                                   self.camera.near, self.camera.far)
 
-        self.state, frame = self._step_fn(self.state, self._tensor(dt), vp, eye, self._lights,
-                                          self._track, self._breath)
-        # a loaded clip that is not playing yet shows black, not the A-pose
-        if self._has_animation and not self._playing:
-            frame = torch.zeros_like(frame)
-        out = torch.round(torch.clamp(frame, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
-        self._update_stats((_time.perf_counter() - now) * 1000.0)
-        self._frame_count += 1
-        # a capacity miss must warn, not drop work silently: one read back
-        # every 120 frames (get_stats reads the last frame's values)
-        if self._frame_count % 120 == 1:
-            self._check_overflow()
+            self.state, frame = self._step_fn(self.state, self._tensor(dt), vp, eye,
+                                              self._lights, self._track, self._breath)
+            # a loaded clip that is not playing yet shows black, not the A-pose
+            if self._has_animation and not self._playing:
+                frame = torch.zeros_like(frame)
+            with tracing.span("engine.readback"):
+                u8 = torch.round(torch.clamp(frame, 0.0, 1.0) * 255.0).to(torch.uint8)
+                with tracing.span("sync"):
+                    out = u8.cpu().numpy()
+            self._update_stats((_time.perf_counter() - now) * 1000.0)
+            self._frame_count += 1
+            # a capacity miss must warn, not drop work silently: one read back
+            # every 120 frames (get_stats reads the last frame's values)
+            if self._frame_count % 120 == 1:
+                self._check_overflow()
         return out
 
     def _check_overflow(self):
         d = self.state.diag
-        po = int(d.pair_overflow)
-        co = int(d.contact_overflow)
+        with tracing.span("sync"):
+            po = int(d.pair_overflow)
+            co = int(d.contact_overflow)
         self._stats.pair_overflow = po
         self._stats.contact_overflow = co
         for name, v, hint in (
@@ -362,7 +369,9 @@ class Engine:
     def profile(self, path: str):
         """A context that records a ``torch.profiler`` trace (host, and the
         card's kernels when the engine runs on one) to the Chrome trace
-        file ``path``:
+        file ``path``, with the program's spans (:mod:`reze_tpu_torch.
+        tracing`) on for its duration, so the trace shows them as
+        ``reze.<span>`` ranges over the operations they launched:
 
             with engine.profile("trace.json"):
                 engine.render()
@@ -375,8 +384,12 @@ class Engine:
 
         @contextlib.contextmanager
         def ctx():
-            with profile(activities=activities) as prof:
-                yield prof
+            was = tracing.enable(True)
+            try:
+                with profile(activities=activities) as prof:
+                    yield prof
+            finally:
+                tracing.enable(was)
             prof.export_chrome_trace(path)
 
         return ctx()

@@ -48,7 +48,7 @@ count is its own: :func:`step` runs the crowd's largest count and keeps a
 character's state from its own count on, as ``jax.vmap`` of the
 reference's ``fori_loop`` does.
 
-Imports torch and numpy only.
+Imports torch, numpy and the package's ``tracing`` only.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import math3d as m3
 from ..core.types import EngineConfig, PhysicsModel, PhysicsState
 
@@ -731,13 +732,17 @@ def step(plan: Plan, state: PhysicsState, dt: Tensor, wq: Tensor,
 
     carry = (pos, quat, lin_vel, ang_vel,
              torch.zeros(n_sub.shape, dtype=torch.int64, device=pos.device))
-    for i in range(int(n_sub.max())):
-        new = substep(plan, *carry)
-        if n_sub.dim():  # a crowd: a character past its own count keeps its state
-            live = i < n_sub
-            new = tuple(torch.where(live.view(live.shape + (1,) * (x.dim() - live.dim())), x, y)
-                        for x, y in zip(new, carry))
-        carry = new
+    with tracing.span("sync"):
+        n_run = int(n_sub.max())
+    tracing.count("physics.substeps", n_run)
+    for i in range(n_run):
+        with tracing.span("physics.substep"):
+            new = substep(plan, *carry)
+            if n_sub.dim():  # a crowd: a character past its own count keeps its state
+                live = i < n_sub
+                new = tuple(torch.where(live.view(live.shape + (1,) * (x.dim() - live.dim())),
+                                        x, y) for x, y in zip(new, carry))
+            carry = new
     pos, quat, lin_vel, ang_vel, overflow = carry
 
     # dynamic bodies back to their bones, bone = body x offset^-1, where

@@ -23,6 +23,7 @@ rejections of a structure and a shape mismatch.
 """
 
 import dataclasses
+import json
 import os
 import warnings
 
@@ -33,7 +34,7 @@ import torch
 
 from reze_tpu import engine as jengine
 from reze_tpu.core import types as JT
-from reze_tpu_torch import Engine, EngineConfig, EngineStats, checkpoint, testing
+from reze_tpu_torch import Engine, EngineConfig, EngineStats, checkpoint, testing, tracing
 from reze_tpu_torch.anim import sampler
 from reze_tpu_torch.core.types import init_scene_state
 from reze_tpu_torch.render import pipeline
@@ -103,8 +104,8 @@ def test_engine_state_matches(runs):
 
 
 def test_engine_api(runs, tmp_path):
-    """The camelCase aliases, the stats, a profile, the overflow warning
-    (once) and dispose."""
+    """The camelCase aliases, the stats, a profile (with the program's spans on), the
+    overflow warning (once) and dispose."""
     port = runs["port"]
     for camel, snake in (("loadModel", "load_model"), ("loadAnimation", "load_animation"),
                          ("playAnimation", "play_animation"), ("stopAnimation", "stop_animation"),
@@ -118,6 +119,9 @@ def test_engine_api(runs, tmp_path):
     with port.profile(path):
         frames = port.run_render_loop(1, dt=1 / 60)
     assert os.path.getsize(path) > 0 and frames[0].shape == (H, W, 3)
+    with open(path, encoding="utf-8") as f:  # the program's spans, on only while profiling
+        assert any(e.get("name") == "reze.pose.fk" for e in json.load(f)["traceEvents"])
+    assert tracing.span("render") is tracing.span("pose.fk")
     port.stop_animation()
     assert not bool(port.state.playing)
     port.state = dataclasses.replace(port.state, diag=dataclasses.replace(
