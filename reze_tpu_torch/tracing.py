@@ -30,7 +30,12 @@ The spans of a frame (``Engine.render``) and of a crowd step
 * ``engine.readback``: the uint8 conversion and the copy to the host;
 * ``sync``: a host read of a device value.
 
-The counter ``physics.substeps`` counts the substeps the solver ran.
+The counter ``physics.substeps`` counts the substeps the solver ran. On a
+CUDA device the solver captures its substep as a CUDA graph once per plan,
+device and leading shape and replays it: ``physics.graph_captures`` counts
+the captures, ``physics.graph_replays`` the replays (a call's substeps, less
+the one that runs eagerly before a capture). Each replay sits in its own
+``physics.substep`` span.
 
 Records are kept in a bounded buffer: when it is full the oldest record
 goes, and the counter ``tracing.dropped`` counts it. The totals per name are

@@ -12,8 +12,11 @@ overflow into the two-stage ring, at C = 2 and at an odd C past the
 card's resident blocks, and right after a 1080p launch; the hybrid crowd
 render against each character's single render, and the crowd step on the
 card against the crowd step on the CPU, against the single step of each
-character, and free of synchronising copies. Marked ``cuda``: every test
-skips without a CUDA device. Run on a GPU machine with
+character, and free of synchronising copies; the solver's substeps
+replayed from a CUDA graph against an eager loop of ``solver.substep`` on
+the card, and on a second card while the first is current. Marked
+``cuda``: every test skips without a CUDA device (the two-card tests
+below two). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports jax).
 
@@ -37,7 +40,7 @@ import torch
 
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.camera import Camera
-from reze_tpu_torch import bridge, distrib
+from reze_tpu_torch import bridge, distrib, tracing
 from reze_tpu_torch.core.types import EngineConfig, init_physics_state, init_scene_state
 from reze_tpu_torch.core.types import PhysicsModel as PT_PhysicsModel
 from reze_tpu_torch.kernels import composite_gpu as CG
@@ -491,6 +494,81 @@ def test_solver_on_gpu_matches_cpu(dev, scene, frames, tol):
     assert moved > 0.1
 
 
+def _eager_substeps(plan, st, n_sub):
+    """An eager loop of ``solver.substep`` from a placed state's bodies, a
+    crowd's character keeping its state past its own count ``n_sub`` ->
+    (pos, quat, lin_vel, ang_vel, overflow)."""
+    carry = (st.position, st.quat, st.lin_vel, st.ang_vel,
+             torch.zeros(n_sub.shape, dtype=torch.int64, device=n_sub.device))
+    for i in range(int(n_sub.max())):
+        live = i < n_sub
+        carry = tuple(torch.where(live.view(live.shape + (1,) * (x.dim() - live.dim())), x, y)
+                      for x, y in zip(solver.substep(plan, *carry), carry))
+    return carry
+
+
+# per case: the crowd size (0: the rig alone), then per call each
+# character's time accumulator and the frame time, in substeps
+GRAPH_CASES = ((0, (((0.25,), 1.0), ((0.25,), 2.0), ((0.25,), 1.0))),
+               (3, (((0.1, 0.7, 0.3), 1.5), ((0.1, 0.7, 0.9), 0.5))),
+               (2, (((0.6, 0.2), 1.6),)))
+
+
+def _check_graph_replays(dev):
+    """``solver.step`` on ``dev`` against :func:`_eager_substeps` on ``dev``
+    over ``GRAPH_CASES``, bit for bit, with the counters and no aliasing."""
+    pm, wq, wp = ptesting.make_physics_rig(0, device=dev)
+    plan = solver.prepare(EngineConfig(), pm)
+    one = init_physics_state(pm.bone_index.shape[0], dev)
+    kept = []
+    tracing.reset()
+    was = tracing.enable(True)
+    try:
+        for c, calls in GRAPH_CASES:
+            lead = (c,) if c else ()
+            st = type(one)(**{k: v.expand(lead + v.shape).clone()
+                              for k, v in dataclasses.asdict(one).items()})
+            q = wq.expand(lead + wq.shape)
+            p = wp + 0.05 * torch.arange(max(c, 1), device=dev).view(lead + (1, 1))
+            _, _, st, _ = solver.step(plan, st, torch.zeros((), device=dev), q, p)  # placed
+            for k, (accum, dt) in enumerate(calls):
+                st = dataclasses.replace(st, time_accum=torch.tensor(accum, device=dev).view(lead)
+                                         * plan.h)
+                dt = dt * plan.h
+                n_sub = torch.floor((st.time_accum + dt) / plan.h).to(torch.int32)
+                want = _eager_substeps(plan, st, n_sub)
+                before = tracing.counters()
+                _, _, st, ovf = solver.step(plan, st, dt, q, p)
+                got = (st.position, st.quat, st.lin_vel, st.ang_vel, ovf)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (c, k, (a.double() - b.double()).abs().max().item())
+                grew = {name: tracing.counters().get(name, 0) - before.get(name, 0)
+                        for name in ("physics.substeps", "physics.graph_captures",
+                                     "physics.graph_replays")}
+                n_run = int(n_sub.max())
+                assert grew == {"physics.substeps": n_run, "physics.graph_captures": int(k == 0),
+                                "physics.graph_replays": n_run - int(k == 0)}, (c, k, grew)
+                for old, copy in kept:
+                    assert all(torch.equal(x, y) for x, y in zip(old, copy))
+                kept.append((got, tuple(x.clone() for x in got)))
+                assert c != 3 or k or len(set(n_sub.tolist())) > 1
+    finally:
+        tracing.enable(was)
+        tracing.reset()
+    assert len(plan.graphs) == 3
+
+
+def test_solver_graph_replays_the_eager_substeps(dev):
+    """``solver.step`` on the card (its substeps replayed from one CUDA graph
+    per leading shape) against an eager loop of ``solver.substep`` on the
+    card from the same state: the rig alone at one and two substeps, a
+    crowd of 3 whose characters run different counts, and a crowd of 2 on
+    the same plan (a second graph). Every state a call returned is
+    unchanged after the later calls, and only a leading shape's first call
+    captures."""
+    _check_graph_replays(dev)
+
+
 # --- the crowd: batched kernels and the crowd step ----------------------------
 
 CROWD_SEEDS = (11, 12, 13)
@@ -857,3 +935,16 @@ def test_kernels_launch_on_their_tensors_card(dev):
     img_t, seed_t = CG.composite_twin(o_t, atlas, **ckw)
     assert (img - img_t).abs().max().item() <= 1e-6
     assert (seed - seed_t).abs().max().item() <= 1e-6
+
+
+def test_solver_graph_replays_on_its_tensors_card(dev):
+    """The solver's graphs on ``cuda:1`` while ``cuda:0`` is current: the
+    eager first substep, the capture and every replay run on the carry's
+    card, and match an eager loop of ``solver.substep`` there bit for bit
+    (a capture on the current card's stream would record nothing of it)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices; "
+                    f"{torch.cuda.device_count()} visible")
+    with torch.cuda.device(0):
+        _check_graph_replays(torch.device("cuda", 1))
+        assert torch.cuda.current_device() == 0

@@ -12,6 +12,9 @@
   and render spans under ``crowd.step``.
 * A span's self time is its time less its child spans'; a full buffer
   drops its oldest records and counts them.
+* On the CPU the solver captures no graph: a crowd's step (two characters
+  of the small rig, running one and two substeps) equals, bit for bit, an
+  eager loop of ``solver.substep``, and no graph counter moves.
 """
 
 import dataclasses
@@ -22,6 +25,8 @@ import torch
 
 from reze_tpu_torch import Engine, EngineConfig, checkpoint, distrib, testing, tracing
 from reze_tpu_torch.camera import Camera
+from reze_tpu_torch.core.types import init_physics_state
+from reze_tpu_torch.physics import solver
 from reze_tpu_torch.render import pipeline
 
 W, H = 64, 64
@@ -180,3 +185,25 @@ def test_full_buffer_counts_dropped(traced, monkeypatch):
     assert [r.name for r in tracing.records()] == ["s2", "s3", "s4"]
     assert tracing.counters() == {tracing.DROPPED: 2}
     assert len(tracing.totals()) == 5
+
+
+def test_cpu_solver_runs_the_eager_loop(traced):
+    pm, wq, wp = testing.make_physics_rig(1, n_bodies=37, n_joints=56, device="cpu")
+    plan = solver.prepare(EngineConfig(), pm)
+    one = init_physics_state(pm.bone_index.shape[0], "cpu")
+    st = type(one)(**{k: torch.stack([v, v]) for k, v in dataclasses.asdict(one).items()})
+    wq2, wp2 = torch.stack([wq, wq]), torch.stack([wp, wp + 0.05])
+    _, _, st, _ = solver.step(plan, st, torch.tensor(0.0), wq2, wp2)  # bodies placed
+    h = plan.h
+    st = dataclasses.replace(st, time_accum=torch.stack([0.1 * h, 0.7 * h]))
+    n_sub = torch.tensor([1, 2], dtype=torch.int32)
+    carry = (st.position, st.quat, st.lin_vel, st.ang_vel, torch.zeros(2, dtype=torch.int64))
+    for i in range(2):
+        new = solver.substep(plan, *carry)
+        live = i < n_sub
+        carry = tuple(torch.where(live.view((2,) + (1,) * (x.dim() - 1)), x, y)
+                      for x, y in zip(new, carry))
+    _, _, got, ovf = solver.step(plan, st, 1.5 * h, wq2, wp2)
+    for a, b in zip((got.position, got.quat, got.lin_vel, got.ang_vel, ovf), carry):
+        assert torch.equal(a, b)
+    assert tracing.counters() == {"physics.substeps": 2} and not plan.graphs
