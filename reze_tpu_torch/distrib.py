@@ -24,18 +24,24 @@ crowd's tensors along their leading axis into one :class:`Sharded` tree
 per ``data`` row (``P("data")``), :func:`replicate` copies a tree to each
 device (``P()``), and :func:`gather` joins shards on one device (what
 reading a sharded ``jax.Array`` does implicitly). ``make_batched_step(...,
-mesh=mesh)`` runs the route above on each shard's device in turn, from one
-host thread (the reference's ``shard_map``): the model, shade tables and
-dims are placed once per distinct device when the step is built, and
-``crowd_chunk`` applies within each shard. The tile axis is reserved, as
-in the reference, which never splits a frame: each ``data`` row runs on
-its first device.
+mesh=mesh)`` runs the route above on each shard's device (the reference's
+``shard_map``), the devices side by side: each distinct device's shards
+step in order on a host thread of that device's own, started when the step
+is built, and the caller waits for them all. The threads take turns at the
+host: one runs host code at a time, and a thread gives the turn away while
+its device drains the solver's work before the render (see
+:func:`_sharded_step`). The model, shade tables and dims are placed once
+per distinct device when the step is built, and ``crowd_chunk`` applies
+within each shard. The tile axis is reserved, as in the reference, which
+never splits a frame: each ``data`` row runs on its first device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import torch
 
@@ -46,6 +52,30 @@ from .render import pipeline_gpu
 from .step import _check_config, _uses_megakernel, make_step
 
 Tensor = torch.Tensor
+
+
+_lane = threading.local()  # ``turn``: the host turn a sharded step's lane holds, on its thread
+
+
+def _drain(x: Tensor) -> None:
+    """On a lane of a sharded step: give the host turn away until ``x``'s
+    device has run what was queued on it, then take the turn back. On any
+    other thread: nothing."""
+    turn = getattr(_lane, "turn", None)
+    if turn is None:
+        return
+    done = None
+    if x.is_cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(x.device))
+    turn.release()
+    try:
+        with tracing.span("crowd.drain"):
+            if done is not None:
+                done.synchronize()
+    finally:
+        with tracing.span("crowd.turn"):
+            turn.acquire()
 
 
 def _map(fn, tree):
@@ -216,6 +246,7 @@ def make_batched_step(model: ModelArrays, cfg: EngineConfig, per_character_clips
     def crowd_step(states, dt, view_projs, eyes, lights, track, breath):
         (t, rot, trans, mw, tween_state, phys_state, contact_overflow, pos, nrm, uvs,
          mat_mod) = single.simulate(states, dt, track, breath)
+        _drain(pos)  # a shard's lane lets the others run while the solver's replays drain
         with tracing.span("render"):
             frames, pair_overflow = pipeline_gpu.render_crowd_mega(
                 model, cfg, dims, pos, nrm, view_projs, eyes, lights, uvs=uvs, mat_mod=mat_mod,
@@ -246,12 +277,33 @@ def make_batched_step(model: ModelArrays, cfg: EngineConfig, per_character_clips
 
 def _sharded_step(model: ModelArrays, cfg: EngineConfig, per_character_clips: bool,
                   crowd_chunk: int | None, mesh: Mesh):
-    """The crowd step over ``mesh``: one unsharded step per distinct
-    device, built here on that device's copy of the model, then each shard
-    stepped on its row's device in turn."""
+    """The crowd step over ``mesh``: one unsharded step per distinct device,
+    built here on that device's copy of the model, and one worker thread per
+    lane, started here. A distinct CUDA device is one lane, whose shards
+    step in order: shards of one leading shape share the device's solver
+    graph and its static tensors (``solver.Plan.graphs``). Off the card,
+    where no graph is shared, each ``data`` row is a lane of its own. The
+    caller waits for every lane and returns the shards in the mesh's order.
+
+    The lanes take turns at the host: a lane holds the step's turn while it
+    runs a shard's host code, and gives it away while its device drains the
+    solver's replays before the render (:func:`_drain`), the one long wait
+    of a shard. The host code is thousands of small torch calls, each of
+    which releases the GIL and takes it back; lanes that ran it at once
+    would hand the GIL over at every call, which on a four-card host made a
+    mesh step several times slower than the shards in turn. Since every
+    call into the port from a lane runs under the turn, nothing below
+    (the kernel library's first build, say) needs a lock of its own."""
     devices = mesh.data_devices
     steps = {d: make_batched_step(_put(model, d), cfg, per_character_clips, crowd_chunk)
              for d in dict.fromkeys(devices)}
+    lanes: dict = {}  # lane -> its data rows, in order
+    for i, d in enumerate(devices):
+        lanes.setdefault(d if d.type == "cuda" else i, []).append(i)
+    pools = [ThreadPoolExecutor(1, thread_name_prefix="reze-shard") for _ in lanes]
+    for pool in pools:  # start each lane's thread now rather than in the first step
+        pool.submit(lambda: None)
+    turn = threading.Lock()
 
     def on(d):
         return torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
@@ -262,15 +314,37 @@ def _sharded_step(model: ModelArrays, cfg: EngineConfig, per_character_clips: bo
             what = "states, view_projs, eyes" + (" and track" if per_character_clips else "")
             raise ValueError(f"make_batched_step: {what} must be Sharded over the mesh's "
                              f"{len(devices)} data rows")
-        new_states, frames = Sharded(), Sharded()
-        for i, d in enumerate(devices):
-            with on(d):
-                s_i, f_i = steps[d](states[i], _put(dt, d), view_projs[i], eyes[i],
-                                    _put(lights, d),
-                                    track[i] if per_character_clips else _put(track, d),
-                                    _put(breath, d))
-            new_states.append(s_i)
-            frames.append(f_i)
-        return new_states, frames
+
+        def lane(rows, outer):
+            out = []
+            with tracing.within(outer):
+                for i in rows:
+                    d = devices[i]
+                    with tracing.span("crowd.turn"):
+                        turn.acquire()
+                    _lane.turn = turn
+                    try:
+                        with on(d):
+                            out.append(steps[d](
+                                states[i], _put(dt, d), view_projs[i], eyes[i], _put(lights, d),
+                                track[i] if per_character_clips else _put(track, d),
+                                _put(breath, d)))
+                    finally:
+                        _lane.turn = None
+                        turn.release()
+                    tracing.count("crowd.shards")
+            return out
+
+        with tracing.span("crowd.mesh_step"):
+            outer = tracing.current()
+            futures = [pool.submit(lane, rows, outer)
+                       for pool, rows in zip(pools, lanes.values())]
+            with tracing.span("crowd.join"):
+                wait(futures)
+            done = {}
+            for future, rows in zip(futures, lanes.values()):
+                done.update(zip(rows, future.result()))
+        return (Sharded(done[i][0] for i in range(len(devices))),
+                Sharded(done[i][1] for i in range(len(devices))))
 
     return step

@@ -740,16 +740,28 @@ def _capture(plan: Plan, carry: tuple, n_sub: Tensor) -> _Replay:
     first: a capture cannot copy ``math3d.const``'s constants to the card.
     The capture stream is made on that device: ``torch.cuda.graph``'s
     default one lives on whichever device was current at the process's
-    first capture, and would make that device current instead."""
+    first capture, and would make that device current instead.
+
+    Other host threads may drive other cards meanwhile (a sharded crowd's
+    lanes, ``distrib``), so the capture is ``thread_local``: in the default
+    ``global`` mode their allocations and synchronisations would break it.
+    For the same reason it synchronises only its own device, and skips
+    ``torch.cuda.graph``'s ``empty_cache``, which frees cached blocks on
+    every card, those other threads are capturing on included."""
     dev = n_sub.device
     static = tuple(torch.empty_like(x) for x in carry)
     counts = torch.empty_like(n_sub)
     index = torch.zeros((), dtype=torch.int32, device=dev)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
-        for s, x in zip(static, _substep_of(plan, static, index, counts)):
-            s.copy_(x)
-        index.add_(1)
+    torch.cuda.synchronize(dev)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            for s, x in zip(static, _substep_of(plan, static, index, counts)):
+                s.copy_(x)
+            index.add_(1)
+        finally:
+            graph.capture_end()
     tracing.count("physics.graph_captures")
     return _Replay(graph, static, counts, index)
 
@@ -762,8 +774,7 @@ def _replay(plan: Plan, carry: tuple, n_sub: Tensor, n_run: int) -> tuple:
     current, whichever device the caller left current.
 
     A key's first call runs one eager substep (its first) and then the
-    capture, which synchronises the device and empties the allocator's
-    cache (``torch.cuda.graph``): some 0.6-0.9 s on an H100 for a rig
+    capture, which synchronises the device: some 0.6-0.9 s on an H100 for a rig
     of the flagship's widths. A front end warms up with at least one substep, for
     each crowd shape it will step, so that no measured or served call
     pays it."""

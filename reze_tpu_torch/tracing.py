@@ -30,6 +30,16 @@ The spans of a frame (``Engine.render``) and of a crowd step
 * ``engine.readback``: the uint8 conversion and the copy to the host;
 * ``sync``: a host read of a device value.
 
+A crowd over a mesh (``make_batched_step(..., mesh=)``) adds the span
+``crowd.mesh_step`` around the whole sharded step, and in it ``crowd.join``,
+the caller's wait for the shards. Each shard's ``crowd.step`` runs on its
+device's worker thread (its lane), nested in the caller's
+``crowd.mesh_step`` through :func:`current` and :func:`within`; on a lane,
+``crowd.turn`` is a wait for the host turn the lanes share, and
+``crowd.drain`` the wait, with the turn given away, for the device to run
+the solver's work before the render. The counter ``crowd.shards`` counts
+the shards stepped.
+
 The counter ``physics.substeps`` counts the substeps the solver ran. On a
 CUDA device the solver captures its substep as a CUDA graph once per plan,
 device and leading shape and replays it: ``physics.graph_captures`` counts
@@ -60,7 +70,9 @@ DROPPED = "tracing.dropped"
 class Record(NamedTuple):
     """One span: ``id`` and ``parent`` (None at the top) number spans since
     the process started; ``call`` numbers the outermost spans since the last
-    :func:`reset`; ``self_ns`` is the span's time less its child spans'."""
+    :func:`reset`; ``self_ns`` is the span's time less its child spans' on
+    its own thread; ``thread`` is the thread it ran on
+    (``threading.get_ident``)."""
 
     name: str
     id: int
@@ -69,6 +81,7 @@ class Record(NamedTuple):
     start_ns: int
     end_ns: int
     self_ns: int
+    thread: int
 
 
 _on = False
@@ -130,6 +143,41 @@ def totals() -> dict[str, dict]:
                 for k, (c, ns, s) in _totals.items()}
 
 
+def current():
+    """The innermost span open on this thread, or None (always None when
+    off): what another thread's :func:`within` nests its spans in."""
+    stack = _stack() if _on else None
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def within(outer):
+    """Spans this thread opens in the block nest in ``outer``, a span open on
+    another thread (:func:`current` there): they take its id as their parent
+    and its call. They run beside ``outer`` rather than inside its thread, so
+    their time is not taken from its self time. None: spans nest as usual."""
+    if outer is None:
+        yield
+        return
+    stack = _stack()
+    stack.append(_Outer(outer))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+class _Outer:
+    """A span of another thread at the bottom of this thread's stack: the
+    spans above it take its id and call; the time they add to its
+    ``child_ns`` is never read."""
+
+    __slots__ = ("id", "call", "child_ns")
+
+    def __init__(self, outer):
+        self.id, self.call, self.child_ns = outer.id, outer.call, 0
+
+
 def _stack() -> list:
     stack = getattr(_local, "stack", None)
     if stack is None:
@@ -172,7 +220,7 @@ class _Span:
             if len(_records) == CAPACITY:
                 _counters[DROPPED] += 1
             _records.append(Record(self.name, self.id, self.parent, self.call, self.start, end,
-                                   own))
+                                   own, threading.get_ident()))
             t = _totals.setdefault(self.name, [0, 0, 0])
             t[0] += 1
             t[1] += ns

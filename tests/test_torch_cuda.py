@@ -14,7 +14,9 @@ render against each character's single render, and the crowd step on the
 card against the crowd step on the CPU, against the single step of each
 character, and free of synchronising copies; the solver's substeps
 replayed from a CUDA graph against an eager loop of ``solver.substep`` on
-the card, and on a second card while the first is current. Marked
+the card, and on a second card while the first is current; the crowd over
+two cards, a lane thread each from the first call, against the same
+shards stepped in turn by one card's lane. Marked
 ``cuda``: every test skips without a CUDA device (the two-card tests
 below two). Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -948,3 +950,53 @@ def test_solver_graph_replays_on_its_tensors_card(dev):
     with torch.cuda.device(0):
         _check_graph_replays(torch.device("cuda", 1))
         assert torch.cuda.current_device() == 0
+
+
+def test_sharded_crowd_steps_cards_side_by_side(dev):
+    """Four characters over two cards, each card's lane on its own thread
+    from the first call, so that one card captures its solver graph while
+    the other lane waits on its own card: states and frames equal bit for
+    bit, over 8 steps, those of the same two shards stepped in turn by one
+    card's lane (``make_mesh(devices=[cuda:0] * 2)``). The first step
+    captures one graph a lane; every later substep is a replay."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices; "
+                    f"{torch.cuda.device_count()} visible")
+    cfg = EngineConfig(width=128, height=128)
+    model = ptesting.make_test_model(tex_hw=(16, 2), device=dev)
+    dt, vps, eyes, lights, track, breath = _crowd_args(model, cfg, 4, dev)
+    first = torch.device("cuda", 0)
+    runs = {}
+    tracing.reset()
+    was = tracing.enable(True)
+    try:
+        for name, mesh in (("two_cards", distrib.make_mesh(2)),
+                           ("one_card", distrib.make_mesh(devices=[first] * 2))):
+            step = distrib.make_batched_step(model, cfg, mesh=mesh)
+            sh = lambda x: distrib.shard_batch(x, mesh)  # noqa: E731
+            shared = [distrib.replicate(x, mesh) for x in (dt, lights, track, breath)]
+            states, shards = sh(_crowd_states(model, 4)), (sh(vps), sh(eyes))
+            lanes = len(set(mesh.devices))
+            runs[name] = []
+            for k in range(8):
+                before = tracing.counters()
+                states, frames = step(states, shared[0], *shards, *shared[1:])
+                grew = {c: tracing.counters().get(c, 0) - before.get(c, 0)
+                        for c in ("physics.substeps", "physics.graph_captures",
+                                  "physics.graph_replays", "crowd.shards")}
+                assert grew["crowd.shards"] == 2, (name, k, grew)
+                captures = lanes if k == 0 else 0
+                assert grew["physics.graph_captures"] == captures, (name, k, grew)
+                assert grew["physics.graph_replays"] == grew["physics.substeps"] - captures
+                runs[name].append((distrib.gather(states, first), distrib.gather(frames, first)))
+    finally:
+        tracing.enable(was)
+        tracing.reset()
+    for k, ((s2, f2), (s1, f1)) in enumerate(zip(runs["two_cards"], runs["one_card"])):
+        assert torch.equal(f2, f1), k
+        flat2, flat1 = [], []
+        distrib._map(flat2.append, s2)
+        distrib._map(flat1.append, s1)
+        assert all(torch.equal(a, b) or bool(((a == b) | (a.isnan() & b.isnan())).all())
+                   for a, b in zip(flat2, flat1)), k
+    assert runs["two_cards"][-1][1].abs().sum() > 0

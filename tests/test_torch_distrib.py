@@ -17,6 +17,12 @@ virtual host devices.
   to the unsharded step's; over two shards, the same with a clip per
   character and with ``crowd_chunk=1`` inside the shards (two chunks a
   shard).
+* The lanes: off the card each data row steps on a worker thread of its
+  own. Every sharded step above runs traced and records one
+  ``crowd.mesh_step`` and one ``crowd.join`` on the caller's thread, one
+  ``crowd.step`` a shard on a thread of its own nested in the
+  ``crowd.mesh_step``, and ``crowd.shards`` equal to the shard count; with
+  ``crowd_chunk=1`` over four shards (C = 8), bit for bit as well.
 * ``renderer="xla"`` sharded against the port's own unsharded oracle step,
   bit for bit. The JAX ``distrib.make_batched_step`` on its 4-device
   virtual mesh is not run: its XLA step's compile alone takes about 15 s
@@ -24,12 +30,13 @@ virtual host devices.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
 import torch
 
-from reze_tpu_torch import distrib
+from reze_tpu_torch import distrib, tracing
 from reze_tpu_torch import testing as ptesting
 from reze_tpu_torch.camera import Camera
 from reze_tpu_torch.core import types as PT
@@ -86,17 +93,41 @@ def _assert_trees_equal(a, b):
 
 def _run_sharded(model, cfg, states, args, mesh, clips=False, chunk=None):
     """The crowd step unsharded and over ``mesh`` from the same inputs ->
-    ((states, frames) unsharded, (states, frames) gathered)."""
+    ((states, frames) unsharded, (states, frames) gathered). The sharded
+    step runs traced, and its spans are those of the lanes: one
+    ``crowd.mesh_step`` and in it one ``crowd.join`` on this thread, and on
+    the batched routes one ``crowd.step`` a shard, each on a worker thread
+    of its own (off the card each row is a lane), nested in the
+    ``crowd.mesh_step`` and inside the join; ``crowd.shards`` counts the
+    shards."""
     dt, vps, eyes, lights, track, breath = args
     want = distrib.make_batched_step(model, cfg, per_character_clips=clips,
                                      crowd_chunk=chunk)(states, *args)
     step = distrib.make_batched_step(model, cfg, per_character_clips=clips, crowd_chunk=chunk,
                                      mesh=mesh)
     sh = lambda x: distrib.shard_batch(x, mesh)  # noqa: E731
-    s, f = step(sh(states), dt, sh(vps), sh(eyes), distrib.replicate(lights, mesh),
-                sh(track) if clips else track, breath)
+    tracing.reset()
+    was = tracing.enable(True)
+    try:
+        s, f = step(sh(states), dt, sh(vps), sh(eyes), distrib.replicate(lights, mesh),
+                    sh(track) if clips else track, breath)
+        records, counters = tracing.records(), tracing.counters()
+    finally:
+        tracing.enable(was)
+        tracing.reset()
     assert isinstance(s, distrib.Sharded) and isinstance(f, distrib.Sharded)
-    assert len(f) == mesh.shape[0] and all(x.shape[0] == C // mesh.shape[0] for x in f)
+    rows = mesh.shape[0]
+    assert len(f) == rows and all(x.shape[0] == len(vps) // rows for x in f)
+    me = threading.get_ident()
+    (top,) = [r for r in records if r.name == "crowd.mesh_step"]
+    (join,) = [r for r in records if r.name == "crowd.join"]
+    assert top.thread == me and join.thread == me and join.parent == top.id
+    assert counters["crowd.shards"] == rows
+    shard = [r for r in records if r.name == "crowd.step"]
+    if cfg.renderer != "xla" and cfg.rasterizer in ("group", "stream"):  # the batched routes
+        assert len(shard) == rows and len({r.thread for r in shard}) == rows
+        assert all(r.thread != me and r.parent == top.id and r.call == top.call
+                   and join.start_ns <= r.start_ns <= r.end_ns <= join.end_ns for r in shard)
     return want, (distrib.gather(s, "cpu"), distrib.gather(f, "cpu"))
 
 
@@ -182,6 +213,18 @@ def test_sharded_step_on_two_shards(clips, chunk):
     (s_want, f_want), (s_got, f_got) = _run_sharded(
         model, cfg, states, args, distrib.make_mesh(devices=["cpu"] * 2), clips=clips,
         chunk=chunk)
+    assert torch.equal(f_got, f_want)
+    _assert_trees_equal(s_got, s_want)
+
+
+def test_sharded_step_lanes():
+    """Eight characters over four rows of the CPU, each row its own lane,
+    with ``crowd_chunk=1`` inside the shards (two chunks a shard): bit for
+    bit the unsharded step."""
+    cfg = PT.EngineConfig(width=SIZE, height=SIZE, enable_physics=False)
+    model, states, args = _inputs(cfg, n=8)
+    (s_want, f_want), (s_got, f_got) = _run_sharded(
+        model, cfg, states, args, distrib.make_mesh(devices=CPU4), chunk=1)
     assert torch.equal(f_got, f_want)
     _assert_trees_equal(s_got, s_want)
 

@@ -12,12 +12,17 @@
   and render spans under ``crowd.step``.
 * A span's self time is its time less its child spans'; a full buffer
   drops its oldest records and counts them.
+* Spans and counters from sixteen threads, nested through
+  ``within`` in a span of the calling thread, lose nothing, carry that
+  span's id and call, and leave its self time whole.
 * On the CPU the solver captures no graph: a crowd's step (two characters
   of the small rig, running one and two substeps) equals, bit for bit, an
   eager loop of ``solver.substep``, and no graph counter moves.
 """
 
 import dataclasses
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -185,6 +190,38 @@ def test_full_buffer_counts_dropped(traced, monkeypatch):
     assert [r.name for r in tracing.records()] == ["s2", "s3", "s4"]
     assert tracing.counters() == {tracing.DROPPED: 2}
     assert len(tracing.totals()) == 5
+
+
+def test_spans_from_many_threads(traced):
+    n_threads, n_spans = 16, 50
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with tracing.span("outer"):
+            outer = tracing.current()
+
+            def work():
+                with tracing.within(outer):
+                    for _ in range(n_spans):
+                        with tracing.span("inner"):
+                            tracing.count("inner")
+
+            threads = [threading.Thread(target=work) for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    total = n_threads * n_spans
+    assert tracing.counters()["inner"] == total and tracing.totals()["inner"]["count"] == total
+    (top,) = [r for r in tracing.records() if r.name == "outer"]
+    inner = [r for r in tracing.records() if r.name == "inner"]
+    assert len(inner) == total
+    assert all(r.parent == top.id and r.call == top.call and r.thread != top.thread
+               for r in inner)
+    assert top.self_ns == top.end_ns - top.start_ns
 
 
 def test_cpu_solver_runs_the_eager_loop(traced):
