@@ -10,7 +10,9 @@ gives it:
   the ``EngineConfig`` fields, the driver that runs it, the limits of the
   output check);
 * ``traffic/<traffic>.json``: the traffic's parameters, read by the
-  configuration's driver;
+  configuration's driver, and ``check_calls``, which every traffic file
+  gives: the number of kept window calls the check replays, read by the
+  harness (:func:`portbench.check.choose`);
 * ``drivers/<driver>.py``: how one kind of entry point is set up, warmed
   up, driven through the window and replayed on the reference;
 * ``metrics/<metric>.py``: ``read(run) -> float | None``, the metric from

@@ -11,6 +11,9 @@ if __name__ == "__main__":
     for _var, _sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                        ("CUDA_CACHE_PATH", "nv_cache")):
         os.environ[_var] = str(_build / _sub)
+    # a traced run's profiler releases CUPTI when it stops; left attached,
+    # it slows every launch of the reference's replay that follows
+    os.environ["TEARDOWN_CUPTI"] = "1"
     os.environ["USE_FLAX"] = "0"
     os.environ["USE_JAX"] = "0"
 

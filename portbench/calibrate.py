@@ -4,11 +4,12 @@
         --control 1,2 --seconds 10 --out chiprun_out/calibrate.jsonl
 
 For each seed, in one process: the cell's driver runs the port for a
-window of ``--seconds`` and the reference replays the kept samples (the
-sound reading); for the seeds listed in ``--control`` the control replays
-the same samples too: the reference computed in TF32
-(``check.precision``), the nearest precision below the configuration's
-float32. One JSON line per seed: the largest of each compared number over
+window of ``--seconds`` and the reference replays the samples that the
+benchmark's check replays (``check.choose``: the start and at most the
+traffic's ``check_calls`` kept calls; the sound reading); for the seeds
+listed in ``--control`` the control replays the same samples too: the
+reference computed in TF32 (``check.precision``), the nearest precision
+below the configuration's float32. One JSON line per seed: the largest of each compared number over
 the samples, for both. The benchmark's own runs never run the control.
 """
 
@@ -36,6 +37,8 @@ def readings(cell, seed: int, seconds: float, control: bool, device: str = "cuda
         run = driver.run(ctx)
         out = {"seed": seed, "calls": run.calls, "samples": len(run.samples),
                "failed": run.failed, "run_s": time.perf_counter() - t}
+        run.samples, _, out["replayed_calls"] = check.choose(run.samples, seed,
+                                                             cell.traffic["check_calls"])
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()

@@ -18,6 +18,12 @@ compared, each the largest over the samples:
 * ``pixel_share``: the share of the frame's pixels in which a channel of
   the uint8 image differs by more than one level.
 
+A run keeps one window call in the traffic's ``check_every``, so the
+faster the port, the more calls it keeps; the reference replays the start
+and at most the traffic's ``check_calls`` of them (:func:`choose`), drawn
+from the seed after the window has closed, so that the replay's time does
+not grow with the port's speed.
+
 Each has its limit in the configuration's file (``"limits"``), set from
 the readings of sound runs and of the control (``PERF.md``). The control
 is the reference computed in TF32 (:func:`precision`): every float32
@@ -33,8 +39,25 @@ import math
 import numpy as np
 import torch
 
+from .loop import rng
+
 NAMES = ("pose_gap", "body_gap", "pixel_share")
 PIXEL_LEVELS = 1  # a channel may differ by this many uint8 levels
+
+
+def choose(samples: list, seed: int, calls: int) -> tuple[list, int, int]:
+    """The samples the reference replays -> (samples, kept window calls,
+    replayed calls with the start). Every sample of the start call and of
+    ``calls`` distinct kept window calls, drawn from the seed without
+    replacement and returned in call order; every sample where no more
+    than ``calls`` were kept. A sample is a tuple whose first item is its
+    call's index (``"start"`` for the start); the samples of one call (a
+    mesh step's shards) go together."""
+    kept = list(dict.fromkeys(s[0] for s in samples if s[0] != "start"))
+    if len(kept) > calls:
+        chosen = {kept[i] for i in rng(seed, 3).choice(len(kept), calls, replace=False)}
+        samples = [s for s in samples if s[0] == "start" or s[0] in chosen]
+    return samples, len(kept), len({s[0] for s in samples})
 
 
 def snapshot(state, index=None):

@@ -11,7 +11,10 @@ A driver's ``run(ctx)`` makes the scene from the seed, sets up the port
 through its public entry point, warms up the cell's own shapes, drives
 the window and returns a :class:`Run`; once the window has closed and the
 device's memory peak has been read, its ``replay(ctx, run)`` steps the
-plain reference over the samples the run kept (:mod:`portbench.check`).
+plain reference over the samples the run kept, or over the start and the
+traffic's ``check_calls`` kept calls drawn from the seed where it kept
+more (:func:`portbench.check.choose`); the notes line's ``check`` entry
+says how many calls were kept and replayed, and the replay's seconds.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and with ``--trace
@@ -211,12 +214,18 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "c
         ctx = Context(cell, seed, seconds, trace, scene_dir, device)
         run = driver.run(ctx)
         peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+        from . import check
+        run.samples, kept, replayed = check.choose(run.samples, seed,
+                                                   cell.traffic["check_calls"])
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-        from . import check
-        reading = check.worst(driver.replay(ctx, run, control=False))
-    correct, compared = check.judge(reading, cell.config["limits"])
+        t = time.perf_counter()
+        readings = driver.replay(ctx, run, control=False)
+        run.notes["check"] = {"kept_calls": kept, "replayed_calls": replayed,
+                              "replayed_samples": len(readings),
+                              "replay_s": time.perf_counter() - t}
+    correct, compared = check.judge(check.worst(readings), cell.config["limits"])
     return run, correct, compared, peak
 
 

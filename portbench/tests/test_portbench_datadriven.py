@@ -42,7 +42,7 @@ def copy_with_dummy(tmp: pathlib.Path) -> pathlib.Path:
     (base / "configs" / "dummy_config.json").write_text(json.dumps(
         {"name": "dummy_config", "driver": "dummy", "size": 7, "reduced": [],
          "limits": {"pose_gap": 0.0, "body_gap": 0.0, "pixel_share": 0.0}}))
-    (base / "traffic" / "dummy_mix.json").write_text(json.dumps({"rate": 3}))
+    (base / "traffic" / "dummy_mix.json").write_text(json.dumps({"rate": 3, "check_calls": 1}))
     (base / "drivers" / "dummy.py").write_text(DRIVER)
     (base / "metrics" / "dummy_metric.py").write_text(METRIC)
     (base / "metrics" / "dummy_layer.py").write_text(METRIC)
